@@ -1,0 +1,183 @@
+"""K1: the generalized SpMV ``y[r] = ⊕_{s→r} process(x[s], val_e)``.
+
+Counterpart of ``graphmat_tpu/ops/pallas_spmv2u.py``.  ⊕ is sum, min or
+max over float32, with identities 0, +inf and -inf: a receiver with no
+contributing edge gets the identity.  ⊗ is one of :data:`PROCESS_OPS`.
+
+* dense: every edge contributes;
+* sparse (``sent`` given, uint8 per sender): an edge contributes only when
+  its sender sent.  ``want_got`` (sum only) adds an int32 count, per
+  receiver, of the edges whose sender sent.
+
+:func:`spmv_csr` launches the hand-written kernel
+``graphmat_tpu_torch/csrc/spmv2u.cu`` on CUDA tensors and runs
+:func:`spmv_csr_reference` on CPU tensors.  :func:`spmv` is the graph-level
+entry: it first extends the operand through the compaction gather
+(:mod:`.compact`) when the graph's CSR carries one.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _lib
+from .compact import aux_gather
+
+__all__ = ["PROCESS_OPS", "IDENTITY", "spmv", "spmv_reference", "spmv_csr",
+           "spmv_csr_reference", "LAUNCHES"]
+
+# ⊗: the closed set the kernel takes, with the torch function of each
+PROCESS_OPS = {
+    "x": lambda x, v: x,
+    "x_mul_val": lambda x, v: x * v,
+    "x_add_val": lambda x, v: x + v,
+}
+IDENTITY = {"sum": 0.0, "min": float("inf"), "max": float("-inf")}
+_REDUCE_CODE = {"sum": 0, "min": 1, "max": 2}
+_PROCESS_CODE = {"x": 0, "x_mul_val": 1, "x_add_val": 2}
+_SCATTER = {"sum": "sum", "min": "amin", "max": "amax"}
+
+# launches of the SpMV kernel by mode; only spmv_csr adds to them
+LAUNCHES = {"dense": 0, "sparse": 0, "sparse_got": 0}
+
+
+def _check(rowptr, col, x, reduce_kind, process_op, val, sent, want_got):
+    if reduce_kind not in _REDUCE_CODE:
+        raise ValueError(f"reduce_kind {reduce_kind!r} is not one of "
+                         f"{sorted(_REDUCE_CODE)}")
+    if process_op not in _PROCESS_CODE:
+        raise ValueError(f"process_op {process_op!r} is not one of "
+                         f"{sorted(_PROCESS_CODE)}")
+    if want_got and (sent is None or reduce_kind != "sum"):
+        raise ValueError("want_got needs the sent mask and reduce_kind "
+                         "'sum'")
+    need = [(rowptr, torch.int32, "rowptr"), (col, torch.int32, "col"),
+            (x, torch.float32, "x")]
+    if process_op != "x":
+        if val is None:
+            raise ValueError(f"process_op {process_op!r} reads val")
+        need.append((val, torch.float32, "val"))
+    if sent is not None:
+        need.append((sent, torch.uint8, "sent"))
+    for t, dtype, name in need:
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, not {t.dtype}")
+        if t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 1-D tensor")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    if process_op != "x" and val.shape != col.shape:
+        raise ValueError("val must hold one value per edge")
+    if sent is not None and sent.shape != x.shape:
+        raise ValueError("sent must hold one flag per sender of x")
+    if rowptr.numel() < 1:
+        raise ValueError("rowptr needs n_rows + 1 entries")
+
+
+def spmv_csr_reference(rowptr, col, x, reduce_kind, process_op, val=None,
+                       sent=None, want_got=False, row=None):
+    """Plain version of K1: gather ``x[col]``, ⊗, then ``scatter_reduce_``
+    into an identity-filled ``y``.  ``row`` (the receiver of each edge)
+    is derived from ``rowptr`` when not given."""
+    n_rows = rowptr.numel() - 1
+    if row is None:
+        row = torch.repeat_interleave(
+            torch.arange(n_rows, device=x.device), rowptr.diff().long())
+    colx = col.long()
+    rowx = row.long()
+    u = PROCESS_OPS[process_op](x[colx], val)
+    if sent is not None:
+        ok = sent[colx].bool()
+        u, rowu = u[ok], rowx[ok]
+    else:
+        rowu = rowx
+    y = torch.full((n_rows,), IDENTITY[reduce_kind], dtype=torch.float32,
+                   device=x.device)
+    y.scatter_reduce_(0, rowu, u, _SCATTER[reduce_kind], include_self=False)
+    if not want_got:
+        return y
+    got = torch.zeros(n_rows, dtype=torch.int32, device=x.device)
+    got.index_add_(0, rowx, sent[colx].to(torch.int32))
+    return y, got
+
+
+def spmv_csr(rowptr, col, x, reduce_kind, process_op, val=None, sent=None,
+             want_got=False, row=None):
+    """K1 on a CSR: ``rowptr`` int32[n_rows+1], ``col`` int32[nnz] (each
+    < len(x); the Graph constructor guarantees it), ``x`` float32, ``val``
+    float32[nnz] when ⊗ reads it, ``sent`` uint8 like ``x``.  Returns
+    ``y`` float32[n_rows], and with ``want_got`` also the int32 count.
+    ``row`` is used only by the plain version."""
+    _check(rowptr, col, x, reduce_kind, process_op, val, sent, want_got)
+    if x.device.type == "cpu":
+        return spmv_csr_reference(rowptr, col, x, reduce_kind, process_op,
+                                  val, sent, want_got, row)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"spmv has no kernel for {x.device}")
+    n_rows = rowptr.numel() - 1
+    y = torch.empty(n_rows, dtype=torch.float32, device=x.device)
+    got = (torch.empty(n_rows, dtype=torch.int32, device=x.device)
+           if want_got else None)
+    if n_rows == 0:
+        return (y, got) if want_got else y
+    mode = "dense" if sent is None else ("sparse_got" if want_got
+                                         else "sparse")
+    lib = _lib.load()
+    rc = lib.gm_spmv(
+        rowptr.data_ptr(), col.data_ptr(),
+        val.data_ptr() if process_op != "x" else None, x.data_ptr(),
+        sent.data_ptr() if sent is not None else None, y.data_ptr(),
+        got.data_ptr() if want_got else None, n_rows,
+        _REDUCE_CODE[reduce_kind], _PROCESS_CODE[process_op],
+        {"dense": 0, "sparse": 1, "sparse_got": 2}[mode],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _lib.check(lib, rc, "spmv")
+    LAUNCHES[mode] += 1
+    return (y, got) if want_got else y
+
+
+def _operand(graph_csr, x, sent):
+    """The operand (and sent mask) the kernel reads: ``x`` itself, or,
+    for a compacted CSR, ``x`` followed by the compaction gather's
+    extension, written into the CSR's preallocated buffers."""
+    c = graph_csr
+    if c.src_of_pos is None:
+        return c.col, x, sent
+    ns = c.n_send
+    c.x_ext[:ns].copy_(x)
+    aux_gather(x, c.src_of_pos, c.x_ext[ns:])
+    sent_ext = None
+    if sent is not None:
+        sent_ext = c.sent_ext
+        sent_ext[:ns].copy_(sent)
+        aux_gather(sent, c.src_of_pos, sent_ext[ns:])
+    return c.col_ext, c.x_ext, sent_ext
+
+
+def _check_operand(graph_csr, x, sent):
+    if x.shape != (graph_csr.n_send,):
+        raise ValueError(f"x has shape {tuple(x.shape)}, the graph has "
+                         f"{graph_csr.n_send} senders")
+    if sent is not None and sent.shape != x.shape:
+        raise ValueError("sent must hold one flag per sender")
+
+
+def spmv(graph_csr, x, reduce_kind, process_op, val=None, sent=None,
+         want_got=False):
+    """K1 over one direction of a graph (a ``core.graph.CSR``): ``x`` and
+    ``sent`` hold one entry per sender (``graph_csr.n_send``).  On a
+    compacted CSR this runs K2 into the operand extension first."""
+    _check_operand(graph_csr, x, sent)
+    col, x_op, sent_op = _operand(graph_csr, x, sent)
+    return spmv_csr(graph_csr.rowptr, col, x_op, reduce_kind, process_op,
+                    val=val, sent=sent_op, want_got=want_got,
+                    row=graph_csr.row)
+
+
+def spmv_reference(graph_csr, x, reduce_kind, process_op, val=None,
+                   sent=None, want_got=False):
+    """Plain version of :func:`spmv`, on the uncompacted senders."""
+    _check_operand(graph_csr, x, sent)
+    return spmv_csr_reference(graph_csr.rowptr, graph_csr.col, x,
+                              reduce_kind, process_op, val, sent, want_got,
+                              graph_csr.row)
