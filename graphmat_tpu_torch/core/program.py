@@ -18,22 +18,25 @@ reference (per element)          here (vectorized)
 
 Vertex properties and messages are tensors or dicts of tensors; program
 state is any such container.  A program that declares a :class:`Semiring`
-runs its SpMV on the hand-written kernel; one that does not runs the
-plain segment reduce of :mod:`graphmat_tpu_torch.ops.segment`.
+runs its SpMV on the hand-written scalar kernel (K1), and an ALL_VERTICES
+program that declares a :class:`VecSemiring` runs it on the K-wide kernel
+(K3); any other runs the plain segment reduce of
+:mod:`graphmat_tpu_torch.ops.segment`.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Optional, Tuple
 
 import torch
 
 from ..ops.spmv2u import PROCESS_OPS
+from ..ops.spmv_vec2 import VEC_PROCESS_OPS
 from .tree import tree_leaves, tree_map
 from .types import Activity, Direction, SUM
 
-__all__ = ["GraphProgram", "IterationContext", "Semiring"]
+__all__ = ["GraphProgram", "IterationContext", "Semiring", "VecSemiring"]
 
 
 def _identity_codec(x):
@@ -78,6 +81,44 @@ class Semiring:
     def process(self) -> Callable:
         """⊗ as a torch function ``(x, edge_val) -> contribution``."""
         return PROCESS_OPS[self.process_op]
+
+
+@dataclass(frozen=True)
+class VecSemiring:
+    """A K-wide, three-operand program's semiring in the form the K3
+    kernel executes; the counterpart of ``PallasVec2Semiring``.
+
+    ⊕ is sum; the engine zeroes the rows of senders that did not send, so
+    ⊗ must absorb a zero message.  Only ALL_VERTICES programs run it (got
+    comes from the graph's structure).
+
+    * ``k``: the row width of the encoded message (and of ``vp``);
+    * ``process_op``: the name of ⊗ in the kernel's closed set
+      (:data:`~graphmat_tpu_torch.ops.spmv_vec2.VEC_PROCESS_OPS`);
+    * ``encode(state, msg)`` -> float32 ``[n, k]``;
+      ``encode_vp(state, vp)`` -> float32 ``[n, k]`` when ``needs_vp``;
+      ``decode(y)`` maps the reduced ``[n, out_width]`` tensor to what
+      ``apply`` takes;
+    * ``extra_fn(state)``: the op's float32 extra operand (LDA's topic
+      totals), or None;
+    * ``params``: the op's scalars (``alpha``, ``eta``, ``vocab_size``).
+    """
+
+    k: int
+    process_op: str
+    encode: Callable
+    encode_vp: Optional[Callable] = None
+    decode: Callable = _identity_codec
+    needs_vp: bool = False
+    extra_fn: Optional[Callable] = None
+    params: dict = field(default_factory=dict)
+
+    def __post_init__(self):
+        if self.process_op not in VEC_PROCESS_OPS:
+            raise ValueError(f"VecSemiring process_op {self.process_op!r} "
+                             f"is not one of {sorted(VEC_PROCESS_OPS)}")
+        if self.needs_vp and self.encode_vp is None:
+            raise ValueError("needs_vp=True needs encode_vp")
 
 
 class IterationContext:
@@ -157,4 +198,9 @@ class GraphProgram:
     def semiring(self) -> Optional[Semiring]:
         """A :class:`Semiring` to run the SpMV on the kernel, or None for
         the plain segment reduce."""
+        return None
+
+    def vec_semiring(self) -> Optional[VecSemiring]:
+        """A :class:`VecSemiring` to run a K-wide SpMV on the K3 kernel
+        (preferred over :meth:`semiring`), or None."""
         return None

@@ -4,7 +4,9 @@ Counterpart of ``graphmat_tpu/core/runtime.py``.  One iteration (the step
 of runtime.py:278-352, after ``include/GraphMatRuntime.h:94-279``):
 
 1. send: every vertex's message; ``sent = active & valid [& send_mask]``;
-2. one SpMV per receiver direction: on the kernel
+2. one SpMV per receiver direction: on the K-wide kernel K3
+   (:func:`graphmat_tpu_torch.ops.spmv_vec2.spmv_vec`) for an ALL_VERTICES
+   program with a :class:`VecSemiring`, on the scalar kernel K1
    (:func:`graphmat_tpu_torch.ops.spmv2u.spmv`) for a program with a
    :class:`Semiring`, else the plain segment reduce;
 3. apply where a message arrived (``got & valid``);
@@ -13,7 +15,7 @@ of runtime.py:278-352, after ``include/GraphMatRuntime.h:94-279``):
    ones (ACTIVE_ONLY).
 
 The loop is a Python loop.  Run to convergence, it reads one bool to the
-host per iteration.
+host per iteration; run for a fixed count, it reads nothing.
 """
 
 from __future__ import annotations
@@ -21,13 +23,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from ..ops.segment import (masked_fill_identity, segment_any,
                            segment_reduce_tree)
 from ..ops.spmv2u import IDENTITY, spmv
+from ..ops.spmv_vec2 import spmv_vec
 from .graph import Graph
-from .program import GraphProgram, IterationContext, Semiring
+from .program import GraphProgram, IterationContext, Semiring, VecSemiring
 from .tree import tree_map
 from .types import Activity, Direction, Monoid, UNTIL_CONVERGENCE
 
@@ -72,6 +76,13 @@ def _where_tree(mask, new_tree, old_tree):
     return tree_map(one, new_tree, old_tree)
 
 
+def _on_device(state, device):
+    """Program state with numpy leaves (a state carried over from the JAX
+    package, whose Engine hands it back as numpy) moved onto ``device``."""
+    return tree_map(lambda a: torch.as_tensor(np.array(a), device=device)
+                    if isinstance(a, np.ndarray) else a, state)
+
+
 def _combine_tree(monoid, a, b):
     if isinstance(monoid, Monoid):
         return tree_map(monoid.combine, a, b)
@@ -91,6 +102,13 @@ class Engine:
         self.graph = graph
         self.ctx = ctx if ctx is not None else IterationContext()
         self._semiring = _normalize_semiring(program.semiring())
+        # K3 takes got from the graph's structure, so only ALL_VERTICES
+        # programs run it.  JAX sends a vec semiring on an ACTIVE_ONLY
+        # program to its K4 kernel, which is not ported (ROADMAP Queue 2):
+        # here such a program runs the plain segment path.
+        self._vec: Optional[VecSemiring] = (
+            program.vec_semiring()
+            if program.activity == Activity.ALL_VERTICES else None)
         self._receivers = _direction_receivers(program.order)
         for recv in self._receivers:
             graph.csr(recv)   # raises if the direction was not built
@@ -129,6 +147,29 @@ class Engine:
                 got = got | g_dir
         return sem.decode(y), got
 
+    def _vec_directions(self, state, msg, sent, vp):
+        """All directions through the K-wide kernel: (reduced, got)."""
+        sem = self._vec
+        # the kernel takes the encoded width, as JAX's engine does
+        # (runtime.py:529), even where it differs from sem.k
+        x = sem.encode(state, msg).to(torch.float32)
+        x = x.masked_fill(~sent[:, None], 0.0).contiguous()
+        vp_enc = (sem.encode_vp(state, vp).to(torch.float32).contiguous()
+                  if sem.needs_vp else None)
+        extra = (sem.extra_fn(state).to(torch.float32).reshape(-1)
+                 .contiguous() if sem.extra_fn is not None else None)
+        y = got = None
+        for recv in self._receivers:
+            csr = self.graph.csr(recv)
+            y_dir = spmv_vec(csr, x, sem.process_op, vp=vp_enc, extra=extra,
+                             params=sem.params)
+            if y is None:
+                y, got = y_dir, csr.got_static
+            else:
+                y = y + y_dir
+                got = got | csr.got_static
+        return sem.decode(y), got
+
     def _segment_directions(self, state, msg, sent, vp):
         """All directions through the plain segment reduce."""
         prog = self.program
@@ -162,7 +203,9 @@ class Engine:
         sent = active & valid
         if send_mask is not None:
             sent = sent & send_mask
-        if self._semiring is not None:
+        if self._vec is not None:
+            reduced, got = self._vec_directions(state, msg, sent, vp)
+        elif self._semiring is not None:
             reduced, got = self._kernel_directions(msg, sent)
         else:
             reduced, got = self._segment_directions(state, msg, sent, vp)
@@ -181,8 +224,8 @@ class Engine:
         runs until no vertex changes (``GraphMatRuntime.h:266-271``), at
         most ``max_iterations``."""
         g = self.graph
-        if state is None:
-            state = self.program.init_state(g)
+        state = (self.program.init_state(g) if state is None
+                 else _on_device(state, g.device))
         if self.program.activity == Activity.ALL_VERTICES:
             g.set_all_active()
         vp, active = g.vp, g.active
@@ -206,8 +249,8 @@ class Engine:
     def step_once(self, state=None):
         """One iteration; returns (state, converged)."""
         g = self.graph
-        if state is None:
-            state = self.program.init_state(g)
+        state = (self.program.init_state(g) if state is None
+                 else _on_device(state, g.device))
         state, g.vp, g.active, any_changed = self._step(0, state, g.vp,
                                                         g.active)
         return state, not bool(any_changed)

@@ -23,10 +23,10 @@ __all__ = ["build", "load", "check"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = ("spmv2u.cu", "compact.cu")
+SOURCES = ("spmv2u.cu", "compact.cu", "spmv_vec2.cu")
 BUILD_DIR = _PKG.parent / "build" / "graphmat_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 900
 
 
@@ -41,10 +41,34 @@ def _nvcc() -> str:
                        "CUDA kernels cannot be built")
 
 
+def _run_all(cmds):
+    """Run the commands at once; returns (log text, all succeeded)."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    log, ok = [], True
+    for c, p in zip(cmds, procs):
+        try:
+            text, _ = p.communicate(timeout=BUILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+                q.wait()
+            raise
+        ok = ok and p.returncode == 0
+        log.append(f"$ {' '.join(c)}\n{text}exit {p.returncode}\n")
+    log.append(f"{len(cmds)} command(s) in "
+               f"{time.perf_counter() - t0:.1f} s\n")
+    return "".join(log), ok
+
+
 def build() -> Path:
     """Compile the kernels if this exact source set has not been built;
-    returns the library's path.  The compiler's output (``-Xptxas -v``:
-    registers and spills per kernel) is kept beside it as ``.log``."""
+    returns the library's path.  One ``nvcc`` per source, all started
+    together, then one link.  The compiler's output (``-Xptxas -v``:
+    registers and spills per kernel) is kept beside the library as
+    ``.log``."""
     srcs = [CSRC / s for s in SOURCES]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in srcs:
@@ -53,16 +77,20 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True,
-                          timeout=BUILD_TIMEOUT_S)
-    log = (f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-           f"\nexit {proc.returncode} after "
-           f"{time.perf_counter() - t0:.1f} s\n")
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in srcs]
+    log, ok = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                        for s, o in zip(srcs, objs)])
+    tmp = out.with_name(f"{tag}.so.tmp")
+    if ok:
+        link_log, ok = _run_all([[nvcc, "-shared", "-o", str(tmp),
+                                  *map(str, objs)]])
+        log += link_log
+    for o in objs:
+        o.unlink(missing_ok=True)
     out.with_suffix(".log").write_text(log)
-    if proc.returncode != 0:
+    if not ok:
         raise RuntimeError(f"nvcc failed building {out.name}:\n{log}")
     os.replace(tmp, out)
     return out
@@ -78,6 +106,9 @@ def load() -> ctypes.CDLL:
     lib.gm_spmv.restype = i
     lib.gm_aux_gather.argtypes = [p, p, p, ctypes.c_longlong, i, p]
     lib.gm_aux_gather.restype = i
+    f = ctypes.c_float
+    lib.gm_spmv_vec2.argtypes = [p, p, p, p, p, p, p, i, i, i, f, f, f, p]
+    lib.gm_spmv_vec2.restype = i
     lib.gm_error_string.argtypes = [i]
     lib.gm_error_string.restype = ctypes.c_char_p
     return lib
