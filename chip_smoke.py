@@ -7,8 +7,12 @@ Run from the root of the repository, with no arguments:
 
 It builds the package's CUDA kernels from ``graphmat_tpu_torch/csrc`` and
 drives the port's main paths on the card: PageRank (K1, K2), then SGD
-collaborative filtering and LDA (K3).  Phases, in order; any failure
-raises and the script exits non-zero:
+collaborative filtering and LDA (K3), then the scalar frontier apps (BFS,
+SSSP, connected components, topological sort, incremental PageRank,
+delta-stepping) on both kernel routes: K1 with its receiver-finality skip
+(``GRAPHMAT_KERNEL=v2u``) and the push kernel for K6/K7
+(``GRAPHMAT_KERNEL=v2``).  Phases, in order; any failure raises and the
+script exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit) and the software;
 2. the kernel build, timed;
@@ -42,10 +46,30 @@ raises and the script exits non-zero:
     against a chunked float64 oracle on the card;
 11. timings from CUDA events: an SGD and an LDA iteration on the kernel
     path and on the plain path, K3 alone at those shapes beside its plain
-    version, M edge-updates/s and M token-updates/s, peak device memory.
+    version, M edge-updates/s and M token-updates/s, peak device memory;
+12. K1's recv_final skip (0, 50 and 100% of rows final, sparse min and
+    sum with got) and packed-key ⊗, and the push kernel (sum with got,
+    min, max, every ⊗; dense and frontiers of 0.01%, 1% and 50% of
+    senders), against their plain versions on phase 3's graph; K1 against
+    the push, bitwise;
+13. the BFS, SSSP, IncPR, DeltaStepping and TopoSort CLIs against the
+    reference binary's outputs in ``tests/golden``, under both routes;
+14. the slice at full size, both routes, counted per run: on phase 5's
+    RMAT-22 graph BFS from 8 sources (depths equal to scipy's BFS, each
+    parent an in-neighbour one level up), connected components (equal to
+    scipy's weak components), TopoSort of its DAG (equal to a host Kahn
+    oracle) and IncPR (against the float64 PageRank fixed point); on an
+    RMAT-20 with bench.py's weights SSSP and DeltaStepping (equal to
+    scipy's Dijkstra) and ``run_bfs_fast`` (equal to the classic BFS);
+15. timings from CUDA events: BFS per source on each route (ms, GTEPS
+    over the input edges within the reached component), one dense and one
+    sparse BFS level on K1 beside the push, the SSSP dense sweep of
+    bench.py:318-334 (GTEPS), the push kernel alone beside its plain
+    version and cuSPARSE, peak device memory.
 
 The last two lines are the kernels' JSON record and
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``.  Phase numbers given as arguments run
+phases 1-2 and those only, without the result lines.
 """
 
 import contextlib
@@ -67,8 +91,13 @@ SUM_RTOL = 1e-5    # of sum(|term|) of the row: the kernel sums in another
                    # order than scatter_reduce_, and a hub row can cancel
 GOLDEN_ATOL = 2e-5  # the golden file prints 6 decimals
 ORACLE_RTOL = 1e-4  # float32 PageRank against the float64 oracle
-LDA_INIT_RTOL = 1e-6  # of the row's sum: the terms are bitwise the same
-                      # rand_r draws, normalised by a sum of another order
+F32_UNIT = 2.0 ** -24  # float32 unit roundoff
+# lda_init's terms are positive: bitwise the same rand_r draws, normalised
+# by a K-term sum of another order, then summed over the row's edges in
+# another order (the plain version by index_add_, whose order changes from
+# run to run on CUDA).  Its bound is the worst case of those two sums,
+# (2 (deg - 1) + 2 K) units of the row's sum; a fixed 1e-6 of it, used
+# before, was crossed on the card at 50-edge rows.
 SGD_LV_ATOL = 1e-5  # float32 factors in [0, 1] (storage 6e-8) after 10
                     # steps whose float32 gradient sums err by ~1e-6 of
                     # updates that are themselves ~1e-4
@@ -84,6 +113,8 @@ TOKEN_RTOL = 1e-5   # a vertex's N sums to its tokens: each edge adds
 MOVIELENS_25M = dict(users=162_541, items=59_047, ratings=25_000_095)
 NYTIMES = dict(docs=300_000, terms=102_660, entries=69_679_427)
 RAND_MAX = 2 ** 31 - 1
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
+FP32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 K3_OPS = ("sgd", "sgd_sqerr", "lda_init", "lda", "lda_loglik")
 
 
@@ -366,6 +397,16 @@ def phase_timings(e, g, card):
     k1_err = check_spmv_case(
         type(csr)(csr.rowptr, csr.col_ext, csr.row, csr.val, ns),
         csr.x_ext, None, None, "sum", "x", "dense", g.device)
+    # yardsticks, never called by the package: cuSPARSE for K1's dense
+    # sum, index_select for K2; and the bounds (each input read once,
+    # each output written once, at the H100's 3.35 TB/s)
+    k1_lib_ms = cusparse_ms(csr.rowptr, csr.col, x)
+    pos = csr.src_of_pos.long()
+    k2_lib_ms = event_ms(lambda: torch.index_select(x, 0, pos), 20)
+    k1_bytes = 4 * (csr.rowptr.numel() + csr.nnz + csr.x_ext.numel()
+                    + csr.n_rows)
+    n_pos = csr.src_of_pos.numel()
+    k2_bytes = 4 * (2 * n_pos + min(n_pos, ns))
     csr_in = g.csr("src")
     sent = (torch.rand(csr_in.x_ext.numel(), generator=gen,
                        device=g.device) < 0.5).to(torch.uint8)
@@ -389,6 +430,8 @@ def phase_timings(e, g, card):
         "k1_sparse_got_plain_ms": k1_got_plain_ms,
         "k2_ms": k2_ms, "k2_plain_ms": k2_plain_ms,
         "k2_positions": int(csr.src_of_pos.numel()),
+        "k1_cusparse_ms": k1_lib_ms, "k1_bound_ms": hbm_ms(k1_bytes),
+        "k2_index_select_ms": k2_lib_ms, "k2_bound_ms": hbm_ms(k2_bytes),
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
     }
     log("phase 6 (" + card + "): " + json.dumps(out))
@@ -438,7 +481,6 @@ def check_k3_case(csr, op, x, vp, extra, params, device):
     if not bool((out[empty] == 0).all()):
         raise AssertionError(f"{what}: a row without edges is not 0")
     # the row's sum of |terms| bounds the reordering error
-    rtol = LDA_INIT_RTOL if op == "lda_init" else SUM_RTOL
     bound = torch.zeros_like(out)
     for c in chunked(csr.nnz):
         colx, rowx = csr.col[c].long(), csr.row[c].long()
@@ -446,7 +488,11 @@ def check_k3_case(csr, op, x, vp, extra, params, device):
             x[colx], csr.val_f32[c], vp[rowx] if vp is not None else None,
             extra, params)
         bound.index_add_(0, rowx, terms.abs())
-    bound *= rtol
+    if op == "lda_init":
+        deg = csr.rowptr.diff().to(out.dtype)[:, None]
+        bound *= (2 * (deg - 1).clamp(min=0) + 2 * x.shape[1]) * F32_UNIT
+    else:
+        bound *= SUM_RTOL
     err = (out - ref).abs()
     if not bool((err <= bound).all()):
         i = int(torch.argmax(err - bound))
@@ -828,6 +874,13 @@ def phase_ml_timings(g_sgd, g_lda, gn_lda, card, k=20):
         err = max(err, check_k3_case(csr, op, x, vp, extra, params,
                                      g_sgd.device))
     sgd_ms, lda_ms = min(step["sgd_kernel"]), min(step["lda_kernel"])
+    # K3 sgd's bound: rowptr, col, val, x, vp and y once; 4K flops a edge
+    k3_bytes = 4 * (c_sgd.rowptr.numel() + 2 * c_sgd.nnz
+                    + 3 * k * c_sgd.n_rows)
+    k3_ops_ms = 4 * k * c_sgd.nnz / FP32_FLOPS * 1e3
+    k3["sgd_bound_ms"] = max(hbm_ms(k3_bytes), k3_ops_ms)
+    k3["sgd_bound_by"] = ("bytes" if hbm_ms(k3_bytes) >= k3_ops_ms
+                          else "operations")
     out = {
         "card": card,
         "step_ms": step,
@@ -844,14 +897,775 @@ def phase_ml_timings(g_sgd, g_lda, gn_lda, card, k=20):
     return out, err
 
 
-def main():
+# ------------------------------------------------- scalar frontier apps
+
+FRONTIERS = (1e-4, 1e-2, 0.5)   # shares of senders in a sparse push
+FINAL_SHARES = (0.0, 0.5, 1.0)  # shares of receiver rows marked final
+DELTA = 64          # delta-stepping bucket width for weights 1..255
+SSSP_ITERS = 200    # bench.py:54, dense relaxation sweeps per timed run
+# of max(1, |pr|): float32 delta-PageRank (deltas under 1e-8 are never
+# propagated) against the float64 fixed point.  K1 sums a row in a fixed
+# order, 32 lanes then a shuffle tree: 9.8e-7 measured at RMAT-22.  The
+# push kernel sums by atomics, one float32 accumulator per receiver in
+# arbitrary order, whose error grows with the in-degree (hub rows of
+# RMAT-22 hold ~10^5 terms): 6.0e-5 to 7.4e-5 measured (NVIDIA H100 80GB
+# HBM3, 700 W; PERF.md section 6)
+INCPR_RTOL = {"v2u": 1e-5, "v2": 1e-3}
+N_SOURCES = 8
+
+
+def sum_bound(col_recv, send_of_edge, terms, n_recv, sent=None):
+    """SUM_RTOL times each receiver's Σ|terms| over contributing edges."""
     import torch
+    t = terms.abs()
+    if sent is not None:
+        t = t * sent[send_of_edge].to(t.dtype)
+    return torch.zeros(n_recv, dtype=t.dtype, device=t.device).index_add_(
+        0, col_recv, t) * SUM_RTOL
+
+
+def compare_out(what, out, ref, kind, bound=None):
+    """min/max bitwise; a sum within ``bound``; returns max |error|."""
+    import torch
+    if kind != "sum":
+        if not torch.equal(out, ref):
+            bad = int((out != ref).sum())
+            raise AssertionError(f"{what}: min/max must be bitwise equal "
+                                 f"({bad} rows differ)")
+        return 0.0
+    err = (out - ref).abs()
+    if not bool((err <= bound).all()):
+        i = int(torch.argmax(err - bound))
+        raise AssertionError(f"{what}: row {i} off by {float(err[i])}, "
+                             f"bound {float(bound[i])}")
+    return float(err.max())
+
+
+def packed_keys(n, bits, gen, device):
+    """Packed BFS keys KEY_BIAS + (depth << bits | id) as float32 patterns,
+    one in ten the +inf fill; integer weights 1..7 for them."""
+    import torch
+    from graphmat_tpu_torch.ops.spmv2u import KEY_BIAS
+    depth = torch.randint(0, 60, (n,), generator=gen, device=device)
+    ids = torch.randint(0, 1 << bits, (n,), generator=gen, device=device)
+    keys = (KEY_BIAS + ((depth << bits) | ids)).to(torch.int32)
+    x = keys.view(torch.float32).clone()
+    x[torch.rand(n, generator=gen, device=device) < 0.1] = float("inf")
+    return x
+
+
+def phase_new_kernels(device, scale=16, edge_factor=16, seed=7):
+    """Phase 12: K1's recv_final and packed-key cases and the push kernel
+    (K6/K7) against their plain versions."""
+    import torch
+    from graphmat_tpu_torch import Graph
+    from graphmat_tpu_torch.ops.spmv2 import spmv_push, spmv_push_reference
+    from graphmat_tpu_torch.ops.spmv2u import (PROCESS_OPS, spmv,
+                                               spmv_reference)
+    from graphmat_tpu_torch.utils.generators import rmat_edgelist
+    e = rmat_edgelist(scale, edge_factor, seed=seed, device=device)
+    g = Graph(e, device=device, compact=False)
+    rc, sc = g.csr("dst"), g.sender_csr("dst")   # receiver-, sender-major
+    n = g.n_pad
+    bits = max(int(np.ceil(np.log2(n))), 1)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    x = torch.randn(n, generator=gen, device=device)
+    val_r = torch.randn(rc.nnz, generator=gen, device=device)
+    val_s = torch.randn(sc.nnz, generator=gen, device=device)
+    w_r = torch.randint(1, 8, (rc.nnz,), generator=gen,
+                        device=device).float()
+    w_s = torch.randint(1, 8, (sc.nnz,), generator=gen,
+                        device=device).float()
+    xk = packed_keys(n, bits, gen, device)
+    sent30 = (torch.rand(n, generator=gen, device=device) < 0.3).to(
+        torch.uint8)
+    k1_err, k1_cases = 0.0, 0
+    # K1: sparse min / sum with got, recv_final at 0, 50 and 100% of rows
+    for share in FINAL_SHARES:
+        rf = (torch.rand(n, generator=gen, device=device) < share).to(
+            torch.uint8)
+        for kind, op, xx, vv in (
+                [(k, o, x, val_r) for k in ("min", "sum")
+                 for o in ("x", "x_mul_val", "x_add_val")]
+                + [("min", "key_add_val", xk, w_r)]):
+            got = kind == "sum"
+            args = (rc, xx, kind, op)
+            kw = dict(val=vv, sent=sent30, want_got=got, recv_final=rf,
+                      bits=bits)
+            out = spmv(*args, **kw)
+            sync(device)
+            ref = spmv_reference(*args, **kw)
+            what = f"K1 {kind} {op} recv_final {share:.0%}"
+            if got:
+                (out, cnt), (ref, cnt_ref) = out, ref
+                if not torch.equal(cnt, cnt_ref):
+                    raise AssertionError(f"{what}: got counts differ")
+                if share == 1.0 and bool(cnt.any()):
+                    raise AssertionError(f"{what}: a final row counted")
+            fin = rf.bool()
+            if bool((out[fin] != {"sum": 0.0, "min": float("inf")}[kind])
+                    .any()):
+                raise AssertionError(f"{what}: a final row is not the "
+                                     "identity")
+            bound = None
+            if kind == "sum":
+                bound = sum_bound(rc.row.long(), rc.col.long(),
+                                  PROCESS_OPS[op](xx[rc.col.long()], vv,
+                                                  bits), n, sent30)
+            k1_err = max(k1_err, compare_out(what, out, ref, kind, bound))
+            k1_cases += 1
+    out = spmv(rc, xk, "min", "key_add_val", val=w_r, bits=bits)
+    sync(device)
+    compare_out("K1 min key_add_val dense", out,
+                spmv_reference(rc, xk, "min", "key_add_val", val=w_r,
+                               bits=bits), "min")
+    k1_cases += 1
+
+    # the push kernel: dense and frontiers of 0.01%, 1% and 50% of senders
+    push_err, push_cases = 0.0, 0
+    frontiers = [None] + [
+        (torch.rand(n, generator=gen, device=device) < f).to(torch.uint8)
+        for f in FRONTIERS]
+    cases = ([(k, o, x, val_s) for k in ("sum", "min", "max")
+              for o in ("x", "x_mul_val", "x_add_val")]
+             + [("min", "key_add_val", xk, w_s)])
+    for kind, op, xx, vv in cases:
+        for sent in frontiers:
+            got = kind == "sum" and sent is not None
+            kw = dict(val=vv, sent=sent, want_got=got, bits=bits)
+            out = spmv_push(sc, xx, kind, op, **kw)
+            sync(device)
+            ref = spmv_push_reference(sc, xx, kind, op, **kw)
+            what = (f"push {kind} {op} "
+                    + ("dense" if sent is None
+                       else f"{float(sent.float().mean()):.2%} sent"))
+            if got:
+                (out, cnt), (ref, cnt_ref) = out, ref
+                if not torch.equal(cnt, cnt_ref):
+                    raise AssertionError(f"{what}: got counts differ")
+            bound = None
+            if kind == "sum":
+                bound = sum_bound(sc.col.long(), sc.row.long(),
+                                  PROCESS_OPS[op](xx[sc.row.long()], vv,
+                                                  bits), n, sent)
+            push_err = max(push_err, compare_out(what, out, ref, kind,
+                                                 bound))
+            push_cases += 1
+    # the two kernels compute one function: K1 equals the push, bitwise
+    for kind in ("min", "max"):
+        for sent in (None, sent30):
+            a = spmv(rc, x, kind, "x", sent=sent)
+            b = spmv_push(sc, x, kind, "x", sent=sent)
+            sync(device)
+            compare_out(f"K1 against the push, {kind}", a, b, kind)
+    log(f"phase 12: RMAT-{scale} x{edge_factor}: n={g.n} nnz={rc.nnz}; K1 "
+        f"agrees in {k1_cases} recv_final/packed-key cases (max |err| "
+        f"{k1_err:.3e}); the push kernel agrees in {push_cases} cases "
+        f"(max |err| {push_err:.3e}); min/max and counts bitwise")
+    return k1_err, push_err
+
+
+def run_cli(module, args):
+    import importlib
+    m = importlib.import_module(module)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        m._main(args)
+    return buf.getvalue()
+
+
+def golden(name):
+    with open(os.path.join(ROOT, "tests", "golden", name)) as f:
+        return f.read()
+
+
+def reset_counts():
+    from graphmat_tpu_torch.ops import compact, spmv2, spmv2u
+    for d in (spmv2u.LAUNCHES, spmv2.LAUNCHES, compact.LAUNCHES):
+        for k in d:
+            d[k] = 0
+
+
+def read_counts():
+    """The launches since :func:`reset_counts` that are not 0, as
+    ``{"kernel.mode": n}`` (k1, push, k2)."""
+    from graphmat_tpu_torch.ops import compact, spmv2, spmv2u
+    return {f"{name}.{mode}": n for name, d in (
+        ("k1", spmv2u.LAUNCHES), ("push", spmv2.LAUNCHES),
+        ("k2", compact.LAUNCHES)) for mode, n in d.items() if n}
+
+
+def launches(counts, kernel):
+    return sum(n for k, n in counts.items() if k.startswith(kernel + "."))
+
+
+def check_route(what, counts, route, cuda, need_final=False):
+    """The run went through its route's kernel: K1 under v2u (with the
+    recv_final skip where the program gives one), the push under v2."""
+    if not cuda:
+        return
+    k1, push = launches(counts, "k1"), launches(counts, "push")
+    fin = sum(n for k, n in counts.items() if k.endswith("_final"))
+    ok = (k1 > 0 and push == 0 and (fin > 0 or not need_final)
+          if route == "v2u" else push > 0 and k1 == 0)
+    if not ok:
+        raise AssertionError(f"{what} under GRAPHMAT_KERNEL={route}: "
+                             f"launches {counts}")
+
+
+def phase_golden_traversal(cuda=True):
+    """Phase 13: the BFS, SSSP, IncPR, DeltaStepping and TopoSort CLIs
+    against the reference binary's outputs, under both kernel routes."""
+    os.environ["GRAPHMAT_PLATFORM"] = "cuda" if cuda else "cpu"
+    mtx = os.path.join(ROOT, "data", "test.bin.mtx")
+    tri = os.path.join(ROOT, "data", "2_10_upper_triangle.bin.mtx")
+    apps = "graphmat_tpu_torch.apps."
+    dist = r"^(\d+) : distance = (\d+)$"
+    out = {}
+    for route in ("v2u", "v2"):
+        os.environ["GRAPHMAT_KERNEL"] = route
+        reset_counts()
+        ours = run_cli(apps + "bfs", [mtx, "1"])
+        depth = r"^Depth (\d+) : (\d+) parent"
+        if (re.findall(depth, ours, re.M)
+                != re.findall(depth, golden("bfs_test_s1.txt"), re.M)
+                or "Reachable vertices = 8" not in ours):
+            raise AssertionError(f"golden BFS ({route}):\n{ours}")
+        for name, args, gold in (
+                ("sssp", [mtx, "1"], "sssp_test_s1.txt"),
+                ("delta_stepping", [mtx, "3", "1"],
+                 "deltastepping_test_d3_s1.txt")):
+            ours = run_cli(apps + name, args)
+            ref = golden(gold)
+            if re.findall(dist, ours, re.M) != re.findall(dist, ref, re.M):
+                raise AssertionError(f"golden {name} ({route}):\n{ours}")
+        m = re.search(r"Number of buckets processed = (\d+)",
+                      golden("deltastepping_test_d3_s1.txt"))
+        if f"Number of buckets processed = {m[1]}" not in ours:
+            raise AssertionError(f"golden buckets ({route}):\n{ours}")
+        ours = run_cli(apps + "incremental_pagerank", [mtx])
+        pat = r"^(\d+) : (\d+) ([\d.]+)$"
+        ref_v = {int(a): (int(b), float(c)) for a, b, c in
+                 re.findall(pat, golden("incpr_test.txt"), re.M)}
+        our_v = {int(a): (int(b), float(c)) for a, b, c in
+                 re.findall(pat, ours, re.M)}
+        if len(ref_v) != 8 or set(our_v) != set(ref_v) or any(
+                our_v[v][0] != d or abs(our_v[v][1] - p) >= 5e-5
+                for v, (d, p) in ref_v.items()):
+            raise AssertionError(f"golden IncPR ({route}):\n{ours}")
+        ours = run_cli(apps + "topological_sort", [tri])
+        pat = r"^Top Sort order (\d+) : (\d+)$"
+        if (re.findall(pat, ours, re.M)
+                != re.findall(pat, golden("toposort_2_10.txt"), re.M)):
+            raise AssertionError(f"golden TopoSort ({route}):\n{ours}")
+        out[route] = read_counts()
+        check_route("goldens", out[route], route, cuda)
+    os.environ["GRAPHMAT_KERNEL"] = "v2u"
+    log(f"phase 13: golden BFS, SSSP, IncPR (5e-5), DeltaStepping and "
+        f"TopoSort match under both routes; launches {out}")
+
+
+def host_csr(src0, dst0, n, w=None):
+    import scipy.sparse as sp
+    v = np.ones(len(src0)) if w is None else w
+    return sp.csr_matrix((v, (src0, dst0)), shape=(n, n))
+
+
+def bfs_oracle(a, s0):
+    """Depths (-1 unreached) from scipy's BFS: its predecessor forest,
+    walked level by level."""
+    from scipy.sparse.csgraph import breadth_first_order
+    _, pred = breadth_first_order(a, s0, directed=True,
+                                  return_predecessors=True)
+    n = a.shape[0]
+    reached = pred >= 0
+    reached[s0] = True
+    depth = np.full(n, -1, np.int64)
+    depth[s0] = 0
+    todo = reached.copy()
+    todo[s0] = False
+    while todo.any():
+        p = pred[todo]
+        ready = depth[p] >= 0
+        idx = np.flatnonzero(todo)[ready]
+        depth[idx] = depth[pred[idx]] + 1
+        todo[idx] = False
+    return np.where(reached, depth, -1)
+
+
+def check_bfs(what, depth, parent, ref_depth, edge_keys, n, source):
+    """Depths exactly the host BFS's; every parent an in-neighbour one
+    level up (edge membership by binary search in the sorted edge keys)."""
+    import torch
+    from graphmat_tpu_torch.apps.bfs import INF_DEPTH
+    ours = np.where(depth == INF_DEPTH, -1, depth.astype(np.int64))
+    if not np.array_equal(ours, ref_depth):
+        bad = np.flatnonzero(ours != ref_depth)
+        raise AssertionError(f"{what}: {bad.size} depths differ from the "
+                             f"host BFS, e.g. vertex {bad[0] + 1}")
+    v = np.flatnonzero(ours > 0)
+    p = parent[v].astype(np.int64) - 1
+    if (p < 0).any() or not np.array_equal(ours[p], ours[v] - 1):
+        raise AssertionError(f"{what}: a parent is not one level up")
+    keys = torch.as_tensor(p * n + v, device=edge_keys.device)
+    at = torch.searchsorted(edge_keys, keys).clamp_(max=edge_keys.numel() - 1)
+    if not bool((edge_keys[at] == keys).all()):
+        raise AssertionError(f"{what}: a parent is not an in-neighbour")
+    if parent[source - 1] != -1:
+        raise AssertionError(f"{what}: the source has a parent")
+
+
+def kahn_levels(src0, dst0, n):
+    """Host Kahn oracle, level by level: a vertex's order is its level
+    (sources 0); INF_ORDER where a cycle blocks it.  Each level costs its
+    frontier's out-edges (np.unique of their heads), not a pass over n."""
+    from graphmat_tpu_torch.apps.topological_sort import INF_ORDER
+    order = np.argsort(src0, kind="stable")
+    col = dst0[order]
+    rowptr = np.zeros(n + 1, np.int64)
+    rowptr[1:] = np.cumsum(np.bincount(src0, minlength=n))
+    indeg = np.bincount(dst0, minlength=n)
+    out = np.full(n, INF_ORDER, np.int64)
+    f = np.flatnonzero(indeg == 0)
+    level = 0
+    while f.size:
+        out[f] = level
+        lens = rowptr[f + 1] - rowptr[f]
+        starts = rowptr[f] - np.concatenate([[0], np.cumsum(lens)[:-1]])
+        heads, cnt = np.unique(col[np.repeat(starts, lens)
+                                   + np.arange(lens.sum())],
+                               return_counts=True)
+        indeg[heads] -= cnt
+        f = heads[indeg[heads] == 0]
+        level += 1
+    return out
+
+
+def pagerank_fixed_point(src0, dst0, n, alpha=0.3, tol=1e-13, max_iter=400):
+    """Float64 PageRank to its fixed point (a step moves no value by more
+    than ``tol`` of max(1, |pr|)), on the device with index_add_ (plain
+    PyTorch, none of the port): the limit of delta-PageRank."""
+    import torch
+    deg = torch.bincount(src0, minlength=n).double()
+    got = torch.bincount(dst0, minlength=n) > 0
+    pr = torch.full((n,), 0.3, dtype=torch.float64, device=src0.device)
+    for it in range(max_iter):
+        msg = torch.where(deg == 0, 0.0, pr / deg.clamp(min=1))
+        acc = torch.zeros_like(pr).index_add_(0, dst0, msg[src0])
+        new = torch.where(got, alpha + (1 - alpha) * acc, pr)
+        if float(((new - pr).abs() / new.abs().clamp(min=1)).max()) < tol:
+            return new, it + 1
+        pr = new
+    return pr, max_iter
+
+
+def timed(fn, device):
+    sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(device)
+    return out, time.perf_counter() - t0
+
+
+def run_routes(what, fn, device, need_final=False):
+    """``fn()`` under GRAPHMAT_KERNEL=v2u and =v2, counts reset before
+    and read after each: {route: (result, seconds, counts)}."""
+    import torch
+    cuda = torch.device(device).type == "cuda"
+    out = {}
+    for route in ("v2u", "v2"):
+        os.environ["GRAPHMAT_KERNEL"] = route
+        reset_counts()
+        res, sec = timed(fn, device)
+        out[route] = (res, sec, read_counts())
+        check_route(what, out[route][2], route, cuda, need_final)
+    os.environ["GRAPHMAT_KERNEL"] = "v2u"
+    return out
+
+
+def phase_traversal(device, scale=22, small_scale=20, edge_factor=16,
+                    seed=1, graph_kw=None):
+    """Phase 14: the slice at full size on both kernel routes, checked
+    against host oracles.  RMAT-``scale`` (phase 5's graph): BFS from
+    N_SOURCES sources, CC, TopoSort on its DAG, IncPR.  RMAT-``small_scale``
+    (scipy's Dijkstra on 65M edges would take minutes): SSSP and
+    DeltaStepping with bench.py's weights, and run_bfs_fast."""
+    import torch
+    from scipy.sparse.csgraph import connected_components, dijkstra
+    from graphmat_tpu_torch import EdgeList, Graph, transforms
+    from graphmat_tpu_torch.apps import (bfs, connected_components as cc,
+                                         delta_stepping as ds,
+                                         incremental_pagerank as ipr,
+                                         sssp, topological_sort as ts)
+    from graphmat_tpu_torch.utils.generators import rmat_edgelist
+    gkw = graph_kw or {}
+    report = {"runs_s": {}, "iterations": {}, "launches": {}}
+
+    def note(name, routes, iters=None):
+        report["runs_s"][name] = {r: v[1] for r, v in routes.items()}
+        report["launches"][name] = {r: v[2] for r, v in routes.items()}
+        if iters is not None:
+            report["iterations"][name] = {r: iters(v[0])
+                                          for r, v in routes.items()}
+
+    e = rmat_edgelist(scale, edge_factor, a=0.57, b=0.19, c=0.19,
+                      seed=seed, device=device)
+    g = Graph(e, device=device, permute="degree", **gkw)
+    n = g.n
+    src0_d, dst0_d = e.src.long() - 1, e.dst.long() - 1
+    src0, dst0 = src0_d.cpu().numpy(), dst0_d.cpu().numpy()
+    edge_keys = torch.sort(src0_d * n + dst0_d)[0]
+    a = host_csr(src0, dst0, n)
+    outdeg = np.bincount(src0, minlength=n)
+    rng = np.random.default_rng(2)
+    sources = (rng.choice(np.flatnonzero(outdeg > 0), N_SOURCES,
+                          replace=False) + 1).tolist()
+    report["sources"] = sources
+
+    # BFS from each source, both routes, against scipy's BFS
+    t0 = time.perf_counter()
+    ref = {s: bfs_oracle(a, s - 1) for s in sources}
+    t_oracle = time.perf_counter() - t0
+    reached_edges = {}
+    for s in sources:
+        routes = run_routes(f"BFS from {s}", lambda: bfs.run_bfs(g, s),
+                            device, need_final=True)
+        for route, ((depth, parent, niter), _, _) in routes.items():
+            check_bfs(f"BFS from {s} ({route})", depth, parent, ref[s],
+                      edge_keys, n, s)
+        note(f"bfs_{s}", routes, lambda r: r[2])
+        reached_edges[s] = int(outdeg[ref[s] >= 0].sum())
+    report["bfs_reached_edges"] = reached_edges
+    log(f"phase 14: BFS from {N_SOURCES} sources on RMAT-{scale} (n={n}, "
+        f"nnz={g.nnz}) equals the host BFS on both routes (oracle "
+        f"{t_oracle:.1f} s); levels {report['iterations']}")
+
+    # connected components against scipy's weak components
+    routes = run_routes("CC", lambda: cc.run_connected_components(g),
+                        device)
+    _, lab = connected_components(a, directed=True, connection="weak")
+    minid = np.full(lab.max() + 1, n, np.int64)
+    np.minimum.at(minid, lab, np.arange(n))
+    want = minid[lab] + 1
+    for route, ((labels, ncomp, _), _, _) in routes.items():
+        if not np.array_equal(labels, want) or ncomp != minid.size:
+            raise AssertionError(f"CC ({route}): labels differ from scipy")
+    note("cc", routes, lambda r: r[2])
+
+    # incremental PageRank against the float64 fixed point
+    routes = run_routes("IncPR", lambda: ipr.run_incremental_pagerank(g),
+                        device)
+    fp, fp_it = pagerank_fixed_point(src0_d, dst0_d, n)
+    fp = fp.cpu().numpy()
+    incpr_err = {}
+    for route, ((pr, _), _, _) in routes.items():
+        if pr.shape != (n,) or not np.isfinite(pr).all():
+            raise AssertionError(f"IncPR ({route}): not finite")
+        incpr_err[route] = float(np.max(np.abs(pr - fp)
+                                        / np.maximum(1.0, np.abs(fp))))
+        if incpr_err[route] > INCPR_RTOL[route]:
+            raise AssertionError(f"IncPR ({route}): off the float64 fixed "
+                                 f"point by {incpr_err[route]}")
+    note("incpr", routes, lambda r: r[1])
+    report["incpr_rel_err"] = incpr_err
+    del g, a, edge_keys
+
+    # topological sort of the graph's DAG against a host Kahn oracle
+    e_dag = transforms.convert_to_dag(e)
+    g_dag = Graph(e_dag, device=device, permute="degree", **gkw)
+    routes = run_routes("TopoSort", lambda: ts.run_topological_sort(g_dag),
+                        device, need_final=True)
+    t0 = time.perf_counter()
+    want = kahn_levels(e_dag.src.cpu().numpy().astype(np.int64) - 1,
+                       e_dag.dst.cpu().numpy().astype(np.int64) - 1, n)
+    t_kahn = time.perf_counter() - t0
+    for route, ((order, cyc, _), _, _) in routes.items():
+        if cyc or not np.array_equal(order, want):
+            raise AssertionError(f"TopoSort ({route}): orders differ from "
+                                 "Kahn's")
+    note("toposort", routes, lambda r: r[2])
+    del g_dag, e_dag, e
+    log(f"phase 14: CC ({minid.size} components) equals scipy; IncPR "
+        f"within {incpr_err} of the float64 fixed point ({fp_it} "
+        f"iterations); TopoSort equals Kahn's levels (oracle {t_kahn:.1f} "
+        f"s) on both routes")
+
+    # RMAT-small: SSSP and DeltaStepping against Dijkstra, fast BFS
+    e2 = rmat_edgelist(small_scale, edge_factor, a=0.57, b=0.19, c=0.19,
+                       seed=seed, device=device)
+    w = np.random.default_rng(3).integers(1, 256, e2.nnz)
+    ew = EdgeList(e2.m, e2.n, e2.src, e2.dst,
+                  torch.as_tensor(w, dtype=torch.float32, device=device))
+    n2 = max(e2.m, e2.n)
+    s2, d2 = (e2.src.cpu().numpy().astype(np.int64) - 1,
+              e2.dst.cpu().numpy().astype(np.int64) - 1)
+    gw = Graph(ew, device=device, build_in_edges=False, permute="degree",
+               **gkw)
+    routes = run_routes("SSSP", lambda: sssp.run_sssp(gw, 1), device)
+    t0 = time.perf_counter()
+    dref = dijkstra(host_csr(s2, d2, n2, w.astype(np.float64)),
+                    directed=True, indices=0)
+    t_dij = time.perf_counter() - t0
+    dref = np.where(np.isfinite(dref), dref, sssp.INF_DIST).astype(np.int64)
+    for route, ((dist, _), _, _) in routes.items():
+        if not np.array_equal(dist.astype(np.int64), dref):
+            raise AssertionError(f"SSSP ({route}): differs from Dijkstra")
+    note("sssp", routes, lambda r: r[1])
+    routes = run_routes("DeltaStepping", lambda: ds.run_delta_stepping(
+        ew, DELTA, 1, device=device), device, need_final=True)
+    for route, ((dist, _), _, _) in routes.items():
+        if not np.array_equal(dist.astype(np.int64), dref):
+            raise AssertionError(f"DeltaStepping ({route}): differs from "
+                                 "Dijkstra")
+    note("delta_stepping", routes, lambda r: r[1])
+
+    e2n = EdgeList(e2.m, e2.n, e2.src.cpu().numpy(), e2.dst.cpu().numpy(),
+                   e2.val.cpu().numpy())
+    e_aug, pred0, ind1 = bfs.build_bfs_shortcuts(e2n)
+    g_aug = Graph(e_aug, device=device, build_in_edges=False,
+                  permute="degree", **gkw)
+    fast_keys = torch.sort(torch.as_tensor(s2 * n2 + d2, device=device))[0]
+    a2 = host_csr(s2, d2, n2)
+    for s in sources[:2]:
+        if s > n2:
+            continue
+        ref2 = bfs_oracle(a2, s - 1)
+        routes = run_routes(f"fast BFS from {s}", lambda: bfs.run_bfs_fast(
+            g_aug, s, pred0, ind1), device, need_final=True)
+        classic = bfs.run_bfs(gw, s)
+        check_bfs(f"classic BFS from {s} at RMAT-{small_scale}",
+                  classic[0], classic[1], ref2, fast_keys, n2, s)
+        for route, ((depth, parent, _), _, _) in routes.items():
+            if not np.array_equal(depth, classic[0]):
+                raise AssertionError(f"fast BFS from {s} ({route}): depths "
+                                     "differ from the classic BFS")
+            check_bfs(f"fast BFS from {s} ({route})", depth, parent, ref2,
+                      fast_keys, n2, s)
+        note(f"bfs_fast_{s}", routes, lambda r: r[2])
+    log(f"phase 14: RMAT-{small_scale} (n={n2}, nnz={e2.nnz}): SSSP and "
+        f"DeltaStepping (delta {DELTA}) equal Dijkstra (oracle {t_dij:.1f} "
+        f"s) on both routes; run_bfs_fast (bits "
+        f"{max(int(np.ceil(np.log2(g_aug.n_pad))), 1)}, "
+        f"{e_aug.nnz - e2.nnz} shortcut edges) equals the classic BFS")
+    log("phase 14: " + json.dumps(report))
+    return report, gw
+
+
+def hbm_ms(nbytes):
+    """The least time to move ``nbytes`` at the H100's 3.35 TB/s."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def cusparse_ms(rowptr, col, x, reps=20):
+    """One PyTorch call that computes a dense sum SpMV (cuSPARSE through
+    a CSR tensor): a yardstick only, never called by the package."""
+    import warnings
+    import torch
+    with warnings.catch_warnings():   # "beta state" notices
+        warnings.simplefilter("ignore")
+        a = torch.sparse_csr_tensor(rowptr, col, torch.ones(
+            col.numel(), dtype=torch.float32, device=x.device),
+            size=(rowptr.numel() - 1, x.numel()))
+    xc = x[:, None]
+    return event_ms(lambda: torch.sparse.mm(a, xc), reps)
+
+
+def profile_run(fn, top=6):
+    """One run of ``fn`` under torch.profiler after a warm-up: wall ms,
+    device ms (the sum of the device events' times: kernels, copies,
+    fills), the idle share of the device, and the ``top`` device events
+    by time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue   # host ops: their kernels are listed themselves
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if us > 0:
+            rows.append((us / 1e3, ev.count, ev.key[:70]))
+    rows.sort(reverse=True)
+    dev = sum(r[0] for r in rows)
+    if dev == 0:
+        return {"wall_ms": wall, "device_ms": "not measured"}
+    return {"wall_ms": wall, "device_ms": dev,
+            "device_idle_share": max(0.0, 1 - dev / wall),
+            "top": [{"kernel": k, "ms": ms, "count": c}
+                    for ms, c, k in rows[:top]]}
+
+
+def phase_traversal_timings(card, report, gw, scale=22, edge_factor=16,
+                            seed=1):
+    """Phase 15: BFS per source on each route, one dense and one sparse
+    BFS level on K1 and on the push kernel, the SSSP dense sweep of
+    bench.py:318-334, each new kernel alone beside its plain version and
+    cuSPARSE, and the bounds; from CUDA events."""
+    import torch
+    from graphmat_tpu_torch import Graph
+    from graphmat_tpu_torch.apps import bfs, sssp
+    from graphmat_tpu_torch.core.runtime import Engine
+    from graphmat_tpu_torch.core.types import Activity
+    from graphmat_tpu_torch.ops.spmv2 import spmv_push, spmv_push_reference
+    from graphmat_tpu_torch.ops.spmv2u import spmv, spmv_reference
+    from graphmat_tpu_torch.utils.generators import rmat_edgelist
+    torch.cuda.reset_peak_memory_stats()
+    e = rmat_edgelist(scale, edge_factor, a=0.57, b=0.19, c=0.19,
+                      seed=seed, device="cuda")
+    g = Graph(e, device="cuda", permute="degree")
+    del e
+    out = {"card": card, "bfs_ms": {}, "bfs_gteps": {}}
+    sources = report["sources"]
+    for route in ("v2u", "v2"):
+        os.environ["GRAPHMAT_KERNEL"] = route
+        eng = Engine(bfs.BFSProgram(), g)
+        ms = []
+        for s in sources:
+            def one():
+                bfs.init_bfs_graph(g, s)
+                eng.run()
+            one()   # warm
+            ms.append(event_ms(one, 1, warm=0))
+        out["bfs_ms"][route] = ms
+        out["bfs_gteps"][route] = [
+            report["bfs_reached_edges"][s] / (t * 1e-3) / 1e9
+            for s, t in zip(sources, ms)]
+    os.environ["GRAPHMAT_KERNEL"] = "v2u"
+
+    # one dense and one sparse level of the last BFS, on each kernel
+    depth = g.vp["depth"]
+    levels = torch.bincount(depth[depth != bfs.INF_DEPTH].long())
+    rc, sc = g.csr("dst"), g.sender_csr("dst")
+    fr_edges = torch.zeros_like(levels)
+    outdeg = sc.rowptr.diff()
+    for lv in range(levels.numel()):
+        fr_edges[lv] = outdeg[depth == lv].sum()
+    dense_lv = int(torch.argmax(fr_edges))
+    sparse_lv = int(levels.numel() - 2 if levels.numel() > 2 else 0)
+    x_ids = torch.arange(1, g.n_pad + 1, device="cuda").float()
+    lv_out = {}
+    for name, lv in (("dense", dense_lv), ("sparse", sparse_lv)):
+        sent = (depth == lv).to(torch.uint8)
+        x = x_ids.masked_fill(sent == 0, float("inf"))
+        rf = ((depth <= lv) | ~g.valid_vertex).to(torch.uint8)
+        k1 = lambda: spmv(rc, x, "min", "x", sent=sent, recv_final=rf)
+        push = lambda: spmv_push(sc, x, "min", "x", sent=sent)
+        a, b = k1(), push()
+        live = rf == 0
+        if not torch.equal(a[live], b[live]):
+            raise AssertionError(f"BFS level {lv}: K1 and push differ")
+        senders = int(sent.sum())
+        # the level's least bytes: each frontier edge's receiver, the sent
+        # mask, each sender's rowptr pair and x, y written once
+        nbytes = (4 * int(fr_edges[lv]) + g.n_pad + 12 * senders
+                  + 4 * g.n_pad)
+        lv_out[name] = {
+            "level": lv, "senders": senders,
+            "frontier_edges": int(fr_edges[lv]),
+            "final_rows": int(rf.sum()), "bound_ms": hbm_ms(nbytes),
+            "k1_recv_final_ms": event_ms(k1, 20),
+            "k1_no_recv_final_ms": event_ms(
+                lambda: spmv(rc, x, "min", "x", sent=sent), 20),
+            "push_ms": event_ms(push, 20),
+            "k1_plain_ms": event_ms(lambda: spmv_reference(
+                rc, x, "min", "x", sent=sent, recv_final=rf), 3, warm=1),
+            "push_plain_ms": event_ms(lambda: spmv_push_reference(
+                sc, x, "min", "x", sent=sent), 3, warm=1)}
+    out["bfs_level"] = lv_out
+    for route in ("v2u", "v2"):
+        os.environ["GRAPHMAT_KERNEL"] = route
+        eng = Engine(bfs.BFSProgram(), g)
+
+        def one_bfs():
+            bfs.init_bfs_graph(g, sources[0])
+            eng.run()
+        out[f"bfs_profile_{route}"] = profile_run(one_bfs)
+    os.environ["GRAPHMAT_KERNEL"] = "v2u"
+
+    # the push kernel alone: dense sum at the slice's shape, its plain
+    # version, cuSPARSE, and its bound (rowptr, col, x, y once)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    x = torch.rand(g.n_pad, generator=gen, device="cuda")
+    push_dense = lambda: spmv_push(sc, x, "sum", "x")
+    push_ms = event_ms(push_dense, 20)
+    push_plain_ms = event_ms(lambda: spmv_push_reference(sc, x, "sum", "x"),
+                             3, warm=1)
+    ref = spmv_push_reference(sc, x, "sum", "x")
+    err = compare_out("push dense sum at the slice's shape", push_dense(),
+                      ref, "sum", sum_bound(sc.col.long(), sc.row.long(), x[
+                          sc.row.long()], g.n_pad))
+    push_bytes = 4 * (sc.rowptr.numel() + sc.nnz + 2 * g.n_pad)
+    out["push_dense_sum"] = {
+        "ms": push_ms, "plain_ms": push_plain_ms,
+        "cusparse_ms": cusparse_ms(rc.rowptr, rc.col, x),
+        "bound_ms": hbm_ms(push_bytes), "bytes": push_bytes,
+        "max_abs_err": err}
+    sent = (torch.rand(g.n_pad, generator=gen, device="cuda") < 0.01).to(
+        torch.uint8)
+    out["push_sparse_min_1pct_ms"] = event_ms(
+        lambda: spmv_push(sc, x, "min", "x", sent=sent), 20)
+    out["k1_sparse_min_1pct_ms"] = event_ms(
+        lambda: spmv(rc, x, "min", "x", sent=sent), 20)
+    del g, rc, sc
+
+    # SSSP dense sweeps (bench.py:318-334) on the RMAT-20 weighted graph
+    class DenseSSSP(sssp.SSSPProgram):
+        activity = Activity.ALL_VERTICES
+    sweeps = {}
+    for route in ("v2u", "v2"):
+        os.environ["GRAPHMAT_KERNEL"] = route
+        eng = Engine(DenseSSSP(), gw)
+
+        def run():
+            sssp.init_sssp_graph(gw, 1)
+            gw.set_all_active()
+            eng.run(iterations=SSSP_ITERS)
+        sweeps[route] = event_ms(run, 3, warm=1)
+    os.environ["GRAPHMAT_KERNEL"] = "v2u"
+    out["sssp_dense_ms"] = sweeps
+    out["sssp_gteps"] = {r: gw.nnz * SSSP_ITERS / (t * 1e-3) / 1e9
+                         for r, t in sweeps.items()}
+    out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    log("phase 15 (" + card + "): " + json.dumps(out))
+    return out
+
+
+def kernel_record(name, source, replaces, launches, err, ms, plain_ms,
+                  bound_ms, bound_by, library_ms):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+def main(argv=None):
+    """With no arguments, every phase and the two result lines.  Phase
+    numbers as arguments run phases 1-2 and those (with the phases they
+    need) and print no result lines: a shorter call for finding faults."""
+    import torch
+    only = {int(a) for a in (sys.argv[1:] if argv is None else argv)}
+    needs = {6: {5}, 11: {9, 10}, 15: {14}}
+
+    def want(ph):
+        return not only or ph in only or any(
+            ph in needs.get(o, ()) for o in only)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this smoke test needs a CUDA GPU")
     sys.path.insert(0, ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     card = card_line()
     log(f"phase 1: card {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
@@ -865,43 +1679,84 @@ def main():
         f"{time.perf_counter() - t0:.1f} s ({lib_path.name})")
     log(lib_path.with_suffix(".log").read_text().strip())
 
-    k1_err = phase_kernels("cuda")
-    phase_golden("cuda")
-    e, g, niter, k1, k2 = phase_slice("cuda")
-    t, k1_err_slice = phase_timings(e, g, card)
-    k1_err = max(k1_err, k1_err_slice)
-    del e, g
+    k1_err = k3_err = push_err = 0.0
+    if want(3):
+        k1_err = phase_kernels("cuda")
+    if want(4):
+        phase_golden("cuda")
+    if want(5):
+        e, g, niter, k1, k2 = phase_slice("cuda")
+    if want(6):
+        t, k1_err_slice = phase_timings(e, g, card)
+        k1_err = max(k1_err, k1_err_slice)
+    if want(5):
+        del e, g
 
-    k3_err = phase_k3("cuda")
-    phase_golden_ml("cuda")
-    _, g_sgd, k3_sgd, sgd_run = phase_sgd(
-        "cuda", MOVIELENS_25M["users"], MOVIELENS_25M["items"],
-        MOVIELENS_25M["ratings"])
-    _, g_lda, gn_lda, k3_lda, lda_run = phase_lda(
-        "cuda", NYTIMES["docs"], NYTIMES["terms"], NYTIMES["entries"])
-    t3, k3_err_slice = phase_ml_timings(g_sgd, g_lda, gn_lda, card)
-    k3_err = max(k3_err, k3_err_slice)
-    log("phase 11: " + json.dumps({"card": card, "sgd": sgd_run,
-                                   "lda": lda_run}))
+    if want(7):
+        k3_err = phase_k3("cuda")
+    if want(8):
+        phase_golden_ml("cuda")
+    if want(9):
+        _, g_sgd, k3_sgd, sgd_run = phase_sgd(
+            "cuda", MOVIELENS_25M["users"], MOVIELENS_25M["items"],
+            MOVIELENS_25M["ratings"])
+    if want(10):
+        _, g_lda, gn_lda, k3_lda, lda_run = phase_lda(
+            "cuda", NYTIMES["docs"], NYTIMES["terms"], NYTIMES["entries"])
+    if want(11):
+        t3, k3_err_slice = phase_ml_timings(g_sgd, g_lda, gn_lda, card)
+        k3_err = max(k3_err, k3_err_slice)
+        log("phase 11: " + json.dumps({"card": card, "sgd": sgd_run,
+                                       "lda": lda_run}))
+    if want(9):
+        del g_sgd
+    if want(10):
+        del g_lda
 
+    if want(12):
+        k1_err_new, push_err = phase_new_kernels("cuda")
+        k1_err = max(k1_err, k1_err_new)
+    if want(13):
+        phase_golden_traversal()
+    if want(14):
+        trav, gw = phase_traversal("cuda")
+    if want(15):
+        t4 = phase_traversal_timings(card, trav, gw)
+        push_err = max(push_err, t4["push_dense_sum"]["max_abs_err"])
+    log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
+    if only:
+        return
+
+    def total(kernel):
+        """Launches of ``kernel`` over phase 14's runs."""
+        return sum(launches(c, kernel) for routes in
+                   trav["launches"].values() for c in routes.values())
+    k1_path = sum(k1.values()) + total("k1")
+    k2_path = k2["aux_gather"] + total("k2")
     log(card)
+    pd = t4["push_dense_sum"]
     kernels = {"kernels": [
-        {"name": "spmv2u", "route": "cuda",
-         "source": "graphmat_tpu_torch/csrc/spmv2u.cu",
-         "replaces": "graphmat_tpu/ops/pallas_spmv2u.py:918",
-         "launches": sum(k1.values()), "max_abs_err": k1_err,
-         "ms": t["k1_dense_sum_ms"], "plain_ms": t["k1_dense_sum_plain_ms"]},
-        {"name": "aux_gather", "route": "cuda",
-         "source": "graphmat_tpu_torch/csrc/compact.cu",
-         "replaces": "graphmat_tpu/ops/pallas_compact.py:408",
-         "launches": k2["aux_gather"], "max_abs_err": 0.0,
-         "ms": t["k2_ms"], "plain_ms": t["k2_plain_ms"]},
-        {"name": "spmv_vec2", "route": "cuda",
-         "source": "graphmat_tpu_torch/csrc/spmv_vec2.cu",
-         "replaces": "graphmat_tpu/ops/pallas_spmv_vec2.py:510",
-         "launches": sum(k3_sgd.values()) + sum(k3_lda.values()),
-         "max_abs_err": k3_err, "ms": t3["k3_ms"]["sgd_ms"],
-         "plain_ms": t3["k3_ms"]["sgd_plain_ms"]},
+        kernel_record(
+            "spmv2u", "graphmat_tpu_torch/csrc/spmv2u.cu",
+            "graphmat_tpu/ops/pallas_spmv2u.py:918", k1_path, k1_err,
+            t["k1_dense_sum_ms"], t["k1_dense_sum_plain_ms"],
+            t["k1_bound_ms"], "bytes", t["k1_cusparse_ms"]),
+        kernel_record(
+            "aux_gather", "graphmat_tpu_torch/csrc/compact.cu",
+            "graphmat_tpu/ops/pallas_compact.py:408", k2_path, 0.0,
+            t["k2_ms"], t["k2_plain_ms"], t["k2_bound_ms"], "bytes",
+            t["k2_index_select_ms"]),
+        kernel_record(
+            "spmv_vec2", "graphmat_tpu_torch/csrc/spmv_vec2.cu",
+            "graphmat_tpu/ops/pallas_spmv_vec2.py:510",
+            sum(k3_sgd.values()) + sum(k3_lda.values()), k3_err,
+            t3["k3_ms"]["sgd_ms"], t3["k3_ms"]["sgd_plain_ms"],
+            t3["k3_ms"]["sgd_bound_ms"], t3["k3_ms"]["sgd_bound_by"], None),
+        kernel_record(
+            "spmv2", "graphmat_tpu_torch/csrc/spmv2.cu",
+            "graphmat_tpu/ops/pallas_spmv2.py:388 and :1154",
+            total("push"), push_err, pd["ms"],
+            pd["plain_ms"], pd["bound_ms"], "bytes", pd["cusparse_ms"]),
     ]}
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -3,10 +3,11 @@
 A GraphMat-style vertex-program engine: each iteration is one generalized
 sparse-matrix × sparse-vector product (send a message per active vertex,
 ⊗ it per edge, ⊕-reduce it per receiver, apply).  Plain tensor code is
-PyTorch; the scalar SpMV, the operand-compaction gather and the K-wide
-three-operand SpMV are CUDA kernels written for Hopper (``csrc/``), each
-with a plain PyTorch version that runs on CPU tensors.  The package never
-imports JAX.
+PyTorch; the scalar SpMV, the frontier push SpMV, the operand-compaction
+gather and the K-wide three-operand SpMV are CUDA kernels written for
+Hopper (``csrc/``), each with a plain PyTorch version that runs on CPU
+tensors.  A Graph lives on the card unless the caller asks for the CPU.
+The package never imports JAX.
 """
 
 from .core.types import (Activity, Direction, Monoid, SUM, MIN, MAX, ANY, LOR,

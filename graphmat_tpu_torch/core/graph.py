@@ -7,11 +7,16 @@ sender; ``val``), with edges sorted by (receiver, sender):
 * receiver = dst, for ``Direction.OUT_EDGES``;
 * receiver = src, for ``Direction.IN_EDGES``.
 
-Vertex properties are a dict of ``[n_pad]`` tensors and the frontier a
-bool ``[n_pad]`` tensor.  Vertex ids are 1-based in the public API and
-0-based inside; with a permutation, the internal id of original vertex
+Vertex properties are a dict of ``[n_pad]`` tensors (held in a box that
+two graphs can share) and the frontier a bool ``[n_pad]`` tensor.  Vertex
+ids are 1-based in the public API and 0-based inside; with a permutation, the internal id of original vertex
 ``i`` (0-based) is ``perm[i]``.  The TPU kernel plans of the JAX package
-have no counterpart: the kernels read the CSR.
+have no counterpart: the kernels read the CSR.  The push kernel
+(:mod:`graphmat_tpu_torch.ops.spmv2`) reads a direction's sender-major
+index instead (:meth:`Graph.sender_csr`).
+
+A graph lives on the card unless the caller asks for the CPU
+(``device="cpu"``); with no GPU the default raises.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from ..io.edgelist import EdgeList
+from ..io.edgelist import EdgeList, edgelist_from_arrays
 from ..ops.compact import compact_enabled, divert_stragglers
 
 __all__ = ["Graph", "CSR", "round_up"]
@@ -76,6 +81,28 @@ class CSR:
         return self._got_static
 
 
+def _graph_device(device) -> torch.device:
+    """The graph's device: the card by default, and never the CPU unless
+    asked for."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "Graph: no CUDA device is available for the default "
+            "device='cuda'; pass device=\"cpu\" to build the graph on the "
+            "CPU")
+    return dev
+
+
+class _VpRef:
+    """The box holding a graph's vertex properties, so that two graphs can
+    share one store (``Graph.share_vertex_property``)."""
+
+    __slots__ = ("vp",)
+
+    def __init__(self, vp):
+        self.vp = vp
+
+
 def _build_csr(senders, receivers, vals, n_pad: int, compact,
                compact_kw) -> CSR:
     """Sort 0-based COO (int64 tensors) by (receiver, sender) into a CSR,
@@ -123,7 +150,8 @@ class Graph:
         Relabel vertices: "degree" puts high out-degree senders at low
         ids, True draws the JAX package's seeded permutation, an array
         gives ``perm[original0] = internal0``.
-    device : torch device of every tensor of the graph.
+    device : torch device of every tensor of the graph; the card
+        (``"cuda"``) by default, which raises without a GPU.
     compact : "auto", True or False
         Operand compaction (:mod:`graphmat_tpu_torch.ops.compact`):
         "auto" turns it on at the JAX package's trigger (8192 operand
@@ -135,9 +163,9 @@ class Graph:
 
     def __init__(self, edgelist: EdgeList, build_in_edges: bool = True,
                  build_out_edges: bool = True, n_align: int = 128,
-                 permute=False, device="cpu", compact="auto",
+                 permute=False, device="cuda", compact="auto",
                  compact_kw: Optional[dict] = None):
-        self.device = torch.device(device)
+        self.device = _graph_device(device)
         dev = self.device
         n = max(edgelist.m, edgelist.n)
         self.n = n
@@ -180,13 +208,14 @@ class Graph:
             self._csr["src"] = _build_csr(dst0, src0, vals, self.n_pad,
                                           compact, compact_kw)
 
+        self._sender = {}   # sender-major indexes built on first use
         self.valid_vertex = torch.arange(self.n_pad, device=dev) < n
-        self.vp: Dict[str, torch.Tensor] = {}
+        self._vpref = _VpRef({})
         self.active = torch.zeros(self.n_pad, dtype=torch.bool, device=dev)
 
     @classmethod
     def from_numpy_state(cls, edgelist: EdgeList, perm, vp, active,
-                         device="cpu", **graph_kw) -> "Graph":
+                         device="cuda", **graph_kw) -> "Graph":
         """A graph that carries on from another package's graph, given as
         host arrays: its edge list, its permutation (``perm[original0] =
         internal0``, or None), its vertex properties in ORIGINAL order
@@ -214,7 +243,59 @@ class Graph:
                 f"{'out' if receiver == 'dst' else 'in'}_edges=True")
         return self._csr[receiver]
 
+    def sender_csr(self, receiver: str) -> CSR:
+        """The sender-major index of the direction whose receiver is
+        ``receiver``: the same edges keyed by sender (``rowptr`` over
+        senders; ``col`` holding each edge's receiver; ``val``), read by
+        the push kernel.  Where the graph holds the opposite direction,
+        that CSR is the index (its own ``col``, not the compacted one);
+        otherwise the index is built once, uncompacted, on first use."""
+        opposite = "src" if receiver == "dst" else "dst"
+        if opposite in self._csr:
+            return self._csr[opposite]
+        if receiver not in self._sender:
+            c = self.csr(receiver)
+            self._sender[receiver] = _build_csr(
+                c.row.long(), c.col.long(), c.val, self.n_pad, False, None)
+        return self._sender[receiver]
+
+    def _all_csrs(self):
+        """(receiver role, CSR) of every CSR the graph holds: a sender-major
+        index of receiver ``r`` plays the opposite receiver's role."""
+        out = list(self._csr.items())
+        for recv, c in self._sender.items():
+            out.append(("src" if recv == "dst" else "dst", c))
+        return out
+
+    @property
+    def nvertices(self) -> int:
+        return self.n
+
+    def get_edges(self) -> EdgeList:
+        """The edges as a 1-based EdgeList in original ids (``SpMat::
+        get_edges``), from the receiver=dst direction when built, sorted
+        by (receiver, sender) of that direction."""
+        recv = "dst" if "dst" in self._csr else "src"
+        c = self._csr[recv]
+        s, r = c.col.long(), c.row.long()
+        src, dst = (s, r) if recv == "dst" else (r, s)
+        if self.perm is not None:
+            inv = torch.empty(self.n, dtype=torch.int64, device=self.device)
+            inv[self.perm] = torch.arange(self.n, device=self.device)
+            src, dst = inv[src], inv[dst]
+        return edgelist_from_arrays((src + 1).cpu().numpy(),
+                                    (dst + 1).cpu().numpy(),
+                                    c.val.cpu().numpy(), m=self.n, n=self.n)
+
     # ----------------------------------------------------------------- vp
+
+    @property
+    def vp(self) -> Dict[str, torch.Tensor]:
+        return self._vpref.vp
+
+    @vp.setter
+    def vp(self, value) -> None:
+        self._vpref.vp = value
 
     def init_vertexproperty(self, **fields) -> None:
         """Initialize the vertex properties.  Each field is a scalar
@@ -235,6 +316,24 @@ class Graph:
                     full[self.perm] = arr
             vp[name] = full
         self.vp = vp
+
+    def set_all_vertexproperty(self, **fields) -> None:
+        self.init_vertexproperty(**fields)
+
+    def share_vertex_property(self, other: "Graph") -> None:
+        """Alias this graph's vertex properties to ``other``'s
+        (``Graph.h:301-305``): both graphs then read and write one store."""
+        if other.n_pad != self.n_pad:
+            raise ValueError("shareVertexProperty requires matching padded "
+                             "size")
+        if (self.perm is None) != (other.perm is None) or (
+                self.perm is not None
+                and not torch.equal(self.perm.cpu(), other.perm.cpu())):
+            raise ValueError(
+                "shareVertexProperty requires the same vertex permutation "
+                "on both graphs; build the second graph with "
+                "permute=first.perm (or permute=False on both)")
+        self._vpref = other._vpref
 
     def _idx(self, vid1: int) -> int:
         i = vid1 - 1
@@ -266,9 +365,31 @@ class Graph:
     def set_all_active(self) -> None:
         self.active = self.valid_vertex.clone()
 
+    def set_all_inactive(self) -> None:
+        self.active = torch.zeros(self.n_pad, dtype=torch.bool,
+                                  device=self.device)
+
     def set_active(self, vid1: int) -> None:
         self.active = self.active.clone()
         self.active[self._idx(vid1)] = True
+
+    def set_inactive(self, vid1: int) -> None:
+        self.active = self.active.clone()
+        self.active[self._idx(vid1)] = False
+
+    def set_active_mask(self, mask) -> None:
+        """Set the frontier from a bool[n] mask in ORIGINAL vertex order."""
+        mask = torch.as_tensor(np.array(mask, bool) if not isinstance(
+            mask, torch.Tensor) else mask, device=self.device).bool()
+        if mask.shape != (self.n,):
+            raise ValueError(f"mask has {mask.shape[0]} entries, graph has "
+                             f"{self.n} vertices")
+        full = torch.zeros(self.n_pad, dtype=torch.bool, device=self.device)
+        if self.perm is None:
+            full[: self.n] = mask
+        else:
+            full[self.perm] = mask
+        self.active = full
 
     def __repr__(self):
         return (f"Graph(n={self.n}, nnz={self.nnz}, n_pad={self.n_pad}, "

@@ -18,14 +18,16 @@ reference (per element)          here (vectorized)
 
 Vertex properties and messages are tensors or dicts of tensors; program
 state is any such container.  A program that declares a :class:`Semiring`
-runs its SpMV on the hand-written scalar kernel (K1), and an ALL_VERTICES
-program that declares a :class:`VecSemiring` runs it on the K-wide kernel
-(K3); any other runs the plain segment reduce of
+runs its SpMV on a hand-written scalar kernel: K1 by default, the push
+kernel (K6/K7) under ``GRAPHMAT_KERNEL=v2``; an ALL_VERTICES program that
+declares a :class:`VecSemiring` runs it on the K-wide kernel (K3); any
+other runs the plain segment reduce of
 :mod:`graphmat_tpu_torch.ops.segment`.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional, Tuple
 
@@ -51,8 +53,11 @@ class Semiring:
       'or' runs as max (encodings must be 0.0/1.0) and 'any' as min.
     * ``process_op``: the name of ⊗ in the kernel's closed set
       (:data:`~graphmat_tpu_torch.ops.spmv2u.PROCESS_OPS`: ``"x"``,
-      ``"x_mul_val"``, ``"x_add_val"``); :attr:`process` is its torch
-      function.  ⊗ must absorb the ⊕ identity.
+      ``"x_mul_val"``, ``"x_add_val"``, and ``"key_add_val"``, packed-key
+      BFS's op: it adds ``(val - 1) << bits`` to the int32 bit pattern of
+      x inside ``[KEY_BIAS, KEY_BIAS + 2^28)``); :attr:`process` is its
+      torch function.  ⊗ must absorb the ⊕ identity.
+    * ``bits``: ``key_add_val``'s shift (the parent-id field width).
     * ``encode(msg)`` maps the message to one float32 tensor of senders;
       ``decode(y)`` maps the reduced float32 tensor back to what ``apply``
       takes.  Integer payloads are exact below 2^24.
@@ -65,6 +70,7 @@ class Semiring:
     encode: Callable = _identity_codec
     decode: Callable = _identity_codec
     uses_edge_value: bool = True
+    bits: int = 0
 
     def __post_init__(self):
         if self.reduce_kind not in ("sum", "min", "max", "or", "any"):
@@ -76,11 +82,15 @@ class Semiring:
         if self.process_op != "x" and not self.uses_edge_value:
             raise ValueError(f"process_op {self.process_op!r} reads the "
                              "edge value; uses_edge_value must be True")
+        if not 0 <= self.bits < 32:
+            raise ValueError(f"Semiring bits={self.bits} must lie in "
+                             "[0, 32)")
 
     @property
     def process(self) -> Callable:
         """⊗ as a torch function ``(x, edge_val) -> contribution``."""
-        return PROCESS_OPS[self.process_op]
+        return functools.partial(PROCESS_OPS[self.process_op],
+                                 bits=self.bits)
 
 
 @dataclass(frozen=True)
@@ -191,8 +201,23 @@ class GraphProgram:
         return state
 
     def receiver_final(self, state, vp, it):
-        """Optional receiver-finality mask for a sparse SpMV skip; None
-        here.  The port's kernel has no such skip yet."""
+        """Optional exact receiver-finality mask, or None (the default).
+
+        Return a bool ``[n_pad]`` mask of receivers whose vertex property
+        can no longer change at sweep ``it`` (0-based within the run).  On
+        the default kernel route (K1, ``GRAPHMAT_KERNEL=v2u``) the sparse
+        SpMV then does not read those receivers' rows: each gets the ⊕
+        identity and no message (the reference's y-bitvector early-out,
+        ``singlenode/spmspv.h:64-81``, generalised to dead receivers).
+        Pad vertices count as final.  Dense sweeps and the push route
+        ignore the mask.
+
+        The mask must be EXACT: every skipped update would have been a
+        no-op, so results (reduce tie-breaks included) are bit-identical
+        with and without it.  Only monotone programs whose apply is a
+        no-op once a vertex is final can give one (e.g. BFS: ``depth <
+        INF``; packed-key BFS: ``key_depth <= it``, since a sweep-``it``
+        message always carries depth >= it + 1)."""
         return None
 
     def semiring(self) -> Optional[Semiring]:

@@ -6,9 +6,14 @@ of runtime.py:278-352, after ``include/GraphMatRuntime.h:94-279``):
 1. send: every vertex's message; ``sent = active & valid [& send_mask]``;
 2. one SpMV per receiver direction: on the K-wide kernel K3
    (:func:`graphmat_tpu_torch.ops.spmv_vec2.spmv_vec`) for an ALL_VERTICES
-   program with a :class:`VecSemiring`, on the scalar kernel K1
-   (:func:`graphmat_tpu_torch.ops.spmv2u.spmv`) for a program with a
-   :class:`Semiring`, else the plain segment reduce;
+   program with a :class:`VecSemiring`; for a program with a
+   :class:`Semiring`, on the scalar kernel the JAX package's selector
+   ``GRAPHMAT_KERNEL`` names (:func:`legacy_kernel_env`): ``v2u``, the
+   default, runs K1 (:func:`graphmat_tpu_torch.ops.spmv2u.spmv`) over the
+   receiver CSR, with the program's receiver-finality mask on sparse
+   sweeps; ``v2`` runs the push kernel that stands for K6/K7
+   (:func:`graphmat_tpu_torch.ops.spmv2.spmv_push`) over the direction's
+   sender-major index; else the plain segment reduce;
 3. apply where a message arrived (``got & valid``);
 4. ``changed``, and the convergence test;
 5. the next frontier: every valid vertex (ALL_VERTICES) or the changed
@@ -21,6 +26,7 @@ host per iteration; run for a fixed count, it reads nothing.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Optional
 
 import numpy as np
@@ -28,6 +34,7 @@ import torch
 
 from ..ops.segment import (masked_fill_identity, segment_any,
                            segment_reduce_tree)
+from ..ops.spmv2 import spmv_push
 from ..ops.spmv2u import IDENTITY, spmv
 from ..ops.spmv_vec2 import spmv_vec
 from .graph import Graph
@@ -36,7 +43,20 @@ from .tree import tree_map
 from .types import Activity, Direction, Monoid, UNTIL_CONVERGENCE
 
 __all__ = ["Engine", "engine_for", "run_graph_program",
-           "graph_program_init"]
+           "graph_program_init", "legacy_kernel_env"]
+
+
+def legacy_kernel_env() -> bool:
+    """Parse ``GRAPHMAT_KERNEL`` as the JAX package does
+    (``graphmat_tpu/core/runtime.py:64-74``): ``v2u`` (the default, K1) or
+    ``v2`` (the push kernel for K6/K7).  Any other value raises: a typo
+    must not silently select a kernel."""
+    val = os.environ.get("GRAPHMAT_KERNEL", "v2u")
+    if val not in ("v2u", "v2"):
+        raise ValueError(
+            f"GRAPHMAT_KERNEL={val!r} unrecognized: use 'v2u' (the "
+            "default, K1) or 'v2' (the push kernel for K6/K7)")
+    return val == "v2"
 
 
 def _normalize_semiring(sem: Optional[Semiring]) -> Optional[Semiring]:
@@ -112,32 +132,45 @@ class Engine:
         self._receivers = _direction_receivers(program.order)
         for recv in self._receivers:
             graph.csr(recv)   # raises if the direction was not built
+        # the kernel selector, read when the Engine is built, as in JAX
+        self._push = legacy_kernel_env()
         self.final_state = None
 
-    def _kernel_directions(self, msg, sent):
-        """All directions through the SpMV kernel: (reduced, got)."""
+    def _kernel_directions(self, msg, sent, recv_final):
+        """All directions through a scalar SpMV kernel, K1 or (under
+        ``GRAPHMAT_KERNEL=v2``) the push kernel: (reduced, got).
+        ``recv_final`` (uint8 per receiver, or None) is given for K1's
+        sparse sweeps only."""
         sem = self._semiring
         kind = sem.reduce_kind
         ident = IDENTITY[kind]
         x = sem.encode(msg).to(torch.float32).masked_fill(~sent, ident)
         dense = self.program.activity == Activity.ALL_VERTICES
         sent_u8 = None if dense else sent.to(torch.uint8)
+        want_got = kind == "sum" and not dense
         read_val = sem.uses_edge_value and sem.process_op != "x"
         y = got = None
         for recv in self._receivers:
             csr = self.graph.csr(recv)
-            val = csr.val_f32 if read_val else None
-            if dense:
-                y_dir = spmv(csr, x, kind, sem.process_op, val=val)
-                g_dir = csr.got_static if kind == "sum" else y_dir != ident
-            elif kind == "sum":
-                y_dir, cnt = spmv(csr, x, kind, sem.process_op, val=val,
-                                  sent=sent_u8, want_got=True)
+            if self._push:
+                pcsr = self.graph.sender_csr(recv)
+                out = spmv_push(pcsr, x, kind, sem.process_op,
+                                val=pcsr.val_f32 if read_val else None,
+                                sent=sent_u8, want_got=want_got,
+                                bits=sem.bits)
+            else:
+                out = spmv(csr, x, kind, sem.process_op,
+                           val=csr.val_f32 if read_val else None,
+                           sent=sent_u8, want_got=want_got,
+                           recv_final=recv_final,
+                           bits=sem.bits)
+            if want_got:
+                y_dir, cnt = out
                 g_dir = cnt > 0
             else:
-                y_dir = spmv(csr, x, kind, sem.process_op, val=val,
-                             sent=sent_u8)
-                g_dir = y_dir != ident
+                y_dir = out
+                g_dir = (csr.got_static if kind == "sum"
+                         else y_dir != ident)
             if y is None:
                 y, got = y_dir, g_dir
             else:
@@ -206,7 +239,13 @@ class Engine:
         if self._vec is not None:
             reduced, got = self._vec_directions(state, msg, sent, vp)
         elif self._semiring is not None:
-            reduced, got = self._kernel_directions(msg, sent)
+            recv_final = None
+            if not self._push and prog.activity == Activity.ACTIVE_ONLY:
+                rf = prog.receiver_final(state, vp, it)
+                if rf is not None:
+                    # pad vertices can never change: count them final
+                    recv_final = (rf | ~valid).to(torch.uint8)
+            reduced, got = self._kernel_directions(msg, sent, recv_final)
         else:
             reduced, got = self._segment_directions(state, msg, sent, vp)
         upd = got & valid

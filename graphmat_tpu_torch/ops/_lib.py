@@ -23,7 +23,7 @@ __all__ = ["build", "load", "check"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = ("spmv2u.cu", "compact.cu", "spmv_vec2.cu")
+SOURCES = ("spmv2u.cu", "compact.cu", "spmv_vec2.cu", "spmv2.cu")
 BUILD_DIR = _PKG.parent / "build" / "graphmat_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -102,8 +102,10 @@ def load() -> ctypes.CDLL:
     (every launch calls this, so it must cost nothing after the first)."""
     lib = ctypes.CDLL(str(build()))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gm_spmv.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.gm_spmv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.gm_spmv.restype = i
+    lib.gm_spmv_push.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.gm_spmv_push.restype = i
     lib.gm_aux_gather.argtypes = [p, p, p, ctypes.c_longlong, i, p]
     lib.gm_aux_gather.restype = i
     f = ctypes.c_float

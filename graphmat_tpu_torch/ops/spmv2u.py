@@ -2,12 +2,19 @@
 
 Counterpart of ``graphmat_tpu/ops/pallas_spmv2u.py``.  ⊕ is sum, min or
 max over float32, with identities 0, +inf and -inf: a receiver with no
-contributing edge gets the identity.  ⊗ is one of :data:`PROCESS_OPS`.
+contributing edge gets the identity.  ⊗ is one of :data:`PROCESS_OPS`;
+``key_add_val`` (packed-key BFS) adds ``(val - 1) << bits`` to the int32
+bit pattern of x, only inside ``[KEY_BIAS, KEY_BIAS + KEY_SPAN)``.
 
 * dense: every edge contributes;
 * sparse (``sent`` given, uint8 per sender): an edge contributes only when
   its sender sent.  ``want_got`` (sum only) adds an int32 count, per
-  receiver, of the edges whose sender sent.
+  receiver, of the edges whose sender sent.  ``recv_final`` (uint8 per
+  receiver row) marks rows the program holds final
+  (``GraphProgram.receiver_final``): such a row is not read and gets the
+  identity (and a count of 0).  The JAX kernel skips a receiver block
+  only when every row in it is final; skipping single rows is exact for
+  the same reason (the program's apply is a no-op there).
 
 :func:`spmv_csr` launches the hand-written kernel
 ``graphmat_tpu_torch/csrc/spmv2u.cu`` on CUDA tensors and runs
@@ -23,25 +30,46 @@ import torch
 from . import _lib
 from .compact import aux_gather
 
-__all__ = ["PROCESS_OPS", "IDENTITY", "spmv", "spmv_reference", "spmv_csr",
-           "spmv_csr_reference", "LAUNCHES"]
+__all__ = ["PROCESS_OPS", "IDENTITY", "KEY_BIAS", "KEY_SPAN", "spmv",
+           "spmv_reference", "spmv_csr", "spmv_csr_reference", "LAUNCHES"]
 
-# ⊗: the closed set the kernel takes, with the torch function of each
+# packed keys live at KEY_BIAS + (depth << bits | parent): the bias keeps
+# every key a normal float32 (no denormals) and is divisible by 2^21, so
+# the depth-field arithmetic never touches it (graphmat_tpu/apps/bfs.py)
+KEY_BIAS = 0x20000000
+KEY_SPAN = 1 << 28
+
+
+def _key_add_val(x, v, bits=0):
+    """Packed-key ⊗: the edge weight lands on the depth field of a real
+    key; the +inf fill and INF keys pass through untouched."""
+    u = x.view(torch.int32)
+    ok = (u >= KEY_BIAS) & (u < KEY_BIAS + KEY_SPAN)
+    w = v.to(torch.int32) - 1
+    return torch.where(ok, u + (w << bits), u).view(torch.float32)
+
+
+# ⊗: the closed set the kernel takes, with the torch function of each;
+# ``bits`` is read by key_add_val only
 PROCESS_OPS = {
-    "x": lambda x, v: x,
-    "x_mul_val": lambda x, v: x * v,
-    "x_add_val": lambda x, v: x + v,
+    "x": lambda x, v, bits=0: x,
+    "x_mul_val": lambda x, v, bits=0: x * v,
+    "x_add_val": lambda x, v, bits=0: x + v,
+    "key_add_val": _key_add_val,
 }
 IDENTITY = {"sum": 0.0, "min": float("inf"), "max": float("-inf")}
 _REDUCE_CODE = {"sum": 0, "min": 1, "max": 2}
-_PROCESS_CODE = {"x": 0, "x_mul_val": 1, "x_add_val": 2}
+_PROCESS_CODE = {"x": 0, "x_mul_val": 1, "x_add_val": 2, "key_add_val": 3}
 _SCATTER = {"sum": "sum", "min": "amin", "max": "amax"}
 
-# launches of the SpMV kernel by mode; only spmv_csr adds to them
-LAUNCHES = {"dense": 0, "sparse": 0, "sparse_got": 0}
+# launches of the SpMV kernel by mode (``_final``: with recv_final); only
+# spmv_csr adds to them
+LAUNCHES = {"dense": 0, "sparse": 0, "sparse_got": 0, "sparse_final": 0,
+            "sparse_got_final": 0}
 
 
-def _check(rowptr, col, x, reduce_kind, process_op, val, sent, want_got):
+def _check(rowptr, col, x, reduce_kind, process_op, val, sent, want_got,
+           recv_final=None, bits=0):
     if reduce_kind not in _REDUCE_CODE:
         raise ValueError(f"reduce_kind {reduce_kind!r} is not one of "
                          f"{sorted(_REDUCE_CODE)}")
@@ -59,6 +87,13 @@ def _check(rowptr, col, x, reduce_kind, process_op, val, sent, want_got):
         need.append((val, torch.float32, "val"))
     if sent is not None:
         need.append((sent, torch.uint8, "sent"))
+    if recv_final is not None:
+        if sent is None:
+            raise ValueError("recv_final is honoured in the sparse modes "
+                             "only: pass sent")
+        need.append((recv_final, torch.uint8, "recv_final"))
+    if not 0 <= bits < 32:
+        raise ValueError(f"bits={bits} must lie in [0, 32)")
     for t, dtype, name in need:
         if t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, not {t.dtype}")
@@ -72,20 +107,24 @@ def _check(rowptr, col, x, reduce_kind, process_op, val, sent, want_got):
         raise ValueError("sent must hold one flag per sender of x")
     if rowptr.numel() < 1:
         raise ValueError("rowptr needs n_rows + 1 entries")
+    if recv_final is not None and recv_final.numel() != rowptr.numel() - 1:
+        raise ValueError("recv_final must hold one flag per receiver row")
 
 
 def spmv_csr_reference(rowptr, col, x, reduce_kind, process_op, val=None,
-                       sent=None, want_got=False, row=None):
+                       sent=None, want_got=False, row=None, recv_final=None,
+                       bits=0):
     """Plain version of K1: gather ``x[col]``, ⊗, then ``scatter_reduce_``
-    into an identity-filled ``y``.  ``row`` (the receiver of each edge)
-    is derived from ``rowptr`` when not given."""
+    into an identity-filled ``y``; rows marked in ``recv_final`` get the
+    identity and a count of 0.  ``row`` (the receiver of each edge) is
+    derived from ``rowptr`` when not given."""
     n_rows = rowptr.numel() - 1
     if row is None:
         row = torch.repeat_interleave(
             torch.arange(n_rows, device=x.device), rowptr.diff().long())
     colx = col.long()
     rowx = row.long()
-    u = PROCESS_OPS[process_op](x[colx], val)
+    u = PROCESS_OPS[process_op](x[colx], val, bits)
     if sent is not None:
         ok = sent[colx].bool()
         u, rowu = u[ok], rowx[ok]
@@ -94,24 +133,32 @@ def spmv_csr_reference(rowptr, col, x, reduce_kind, process_op, val=None,
     y = torch.full((n_rows,), IDENTITY[reduce_kind], dtype=torch.float32,
                    device=x.device)
     y.scatter_reduce_(0, rowu, u, _SCATTER[reduce_kind], include_self=False)
+    final = recv_final.bool() if recv_final is not None else None
+    if final is not None:
+        y.masked_fill_(final, IDENTITY[reduce_kind])
     if not want_got:
         return y
     got = torch.zeros(n_rows, dtype=torch.int32, device=x.device)
     got.index_add_(0, rowx, sent[colx].to(torch.int32))
+    if final is not None:
+        got.masked_fill_(final, 0)
     return y, got
 
 
 def spmv_csr(rowptr, col, x, reduce_kind, process_op, val=None, sent=None,
-             want_got=False, row=None):
+             want_got=False, row=None, recv_final=None, bits=0):
     """K1 on a CSR: ``rowptr`` int32[n_rows+1], ``col`` int32[nnz] (each
     < len(x); the Graph constructor guarantees it), ``x`` float32, ``val``
-    float32[nnz] when ⊗ reads it, ``sent`` uint8 like ``x``.  Returns
-    ``y`` float32[n_rows], and with ``want_got`` also the int32 count.
-    ``row`` is used only by the plain version."""
-    _check(rowptr, col, x, reduce_kind, process_op, val, sent, want_got)
+    float32[nnz] when ⊗ reads it, ``sent`` uint8 like ``x``,
+    ``recv_final`` uint8[n_rows] (sparse modes only), ``bits`` the shift
+    of ``key_add_val``.  Returns ``y`` float32[n_rows], and with
+    ``want_got`` also the int32 count.  ``row`` is used only by the plain
+    version."""
+    _check(rowptr, col, x, reduce_kind, process_op, val, sent, want_got,
+           recv_final, bits)
     if x.device.type == "cpu":
         return spmv_csr_reference(rowptr, col, x, reduce_kind, process_op,
-                                  val, sent, want_got, row)
+                                  val, sent, want_got, row, recv_final, bits)
     if x.device.type != "cuda":
         raise RuntimeError(f"spmv has no kernel for {x.device}")
     n_rows = rowptr.numel() - 1
@@ -126,13 +173,14 @@ def spmv_csr(rowptr, col, x, reduce_kind, process_op, val=None, sent=None,
     rc = lib.gm_spmv(
         rowptr.data_ptr(), col.data_ptr(),
         val.data_ptr() if process_op != "x" else None, x.data_ptr(),
-        sent.data_ptr() if sent is not None else None, y.data_ptr(),
-        got.data_ptr() if want_got else None, n_rows,
+        sent.data_ptr() if sent is not None else None,
+        recv_final.data_ptr() if recv_final is not None else None,
+        y.data_ptr(), got.data_ptr() if want_got else None, n_rows,
         _REDUCE_CODE[reduce_kind], _PROCESS_CODE[process_op],
-        {"dense": 0, "sparse": 1, "sparse_got": 2}[mode],
+        {"dense": 0, "sparse": 1, "sparse_got": 2}[mode], bits,
         torch.cuda.current_stream(x.device).cuda_stream)
     _lib.check(lib, rc, "spmv")
-    LAUNCHES[mode] += 1
+    LAUNCHES[mode + ("_final" if recv_final is not None else "")] += 1
     return (y, got) if want_got else y
 
 
@@ -163,21 +211,22 @@ def _check_operand(graph_csr, x, sent):
 
 
 def spmv(graph_csr, x, reduce_kind, process_op, val=None, sent=None,
-         want_got=False):
+         want_got=False, recv_final=None, bits=0):
     """K1 over one direction of a graph (a ``core.graph.CSR``): ``x`` and
-    ``sent`` hold one entry per sender (``graph_csr.n_send``).  On a
-    compacted CSR this runs K2 into the operand extension first."""
+    ``sent`` hold one entry per sender (``graph_csr.n_send``),
+    ``recv_final`` one per receiver row.  On a compacted CSR this runs K2
+    into the operand extension first."""
     _check_operand(graph_csr, x, sent)
     col, x_op, sent_op = _operand(graph_csr, x, sent)
     return spmv_csr(graph_csr.rowptr, col, x_op, reduce_kind, process_op,
                     val=val, sent=sent_op, want_got=want_got,
-                    row=graph_csr.row)
+                    row=graph_csr.row, recv_final=recv_final, bits=bits)
 
 
 def spmv_reference(graph_csr, x, reduce_kind, process_op, val=None,
-                   sent=None, want_got=False):
+                   sent=None, want_got=False, recv_final=None, bits=0):
     """Plain version of :func:`spmv`, on the uncompacted senders."""
     _check_operand(graph_csr, x, sent)
     return spmv_csr_reference(graph_csr.rowptr, graph_csr.col, x,
                               reduce_kind, process_op, val, sent, want_got,
-                              graph_csr.row)
+                              graph_csr.row, recv_final, bits)

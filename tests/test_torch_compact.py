@@ -114,8 +114,9 @@ PORT_CKW = dict(wr=256, hub=64, divert_min=40, bpsb=2, w_div=64)
 def compact_pair():
     s, r, v = rand_graph(N_C, E_C, seed=41, skew=True)
     e = edgelist_from_arrays(s + 1, r + 1, v, m=N_C, n=N_C)
-    g0 = Graph(e, build_in_edges=False, compact=False)
-    g1 = Graph(e, build_in_edges=False, compact=True, compact_kw=PORT_CKW)
+    g0 = Graph(e, build_in_edges=False, compact=False, device="cpu")
+    g1 = Graph(e, build_in_edges=False, compact=True, compact_kw=PORT_CKW,
+               device="cpu")
     assert g0.csr("dst").src_of_pos is None
     assert g1.csr("dst").src_of_pos is not None
     return s, r, v, g0, g1

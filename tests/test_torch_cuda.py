@@ -12,7 +12,10 @@ another order than ``scatter_reduce_``), and K3's ``lda_init`` within
 1e-6 (its terms are the same rand_r draws); PageRank on the card is
 within 1e-5 of max(1, |pr|) of PageRank on the CPU; SGD and LDA on the
 card within 1e-6 (RMSE, factors) or 1e-5 relative (LDA's N, global_N and
-log-likelihood, and factors after K = 40 steps) of the CPU port.
+log-likelihood, and factors after K = 40 steps) of the CPU port.  The
+frontier apps on the card equal their CPU runs exactly (depths, parents,
+distances, labels, orders), on both kernel routes; incremental PageRank
+within 1e-5 of max(1, |pr|) (the push route sums by atomics).
 """
 
 import os
@@ -23,7 +26,7 @@ import torch
 
 import graphmat_tpu_torch as gt
 from graphmat_tpu_torch.apps import pagerank as tpr
-from graphmat_tpu_torch.ops import compact, spmv2u, spmv_vec2
+from graphmat_tpu_torch.ops import compact, spmv2, spmv2u, spmv_vec2
 from graphmat_tpu_torch.utils.generators import rmat_edgelist
 
 pytestmark = pytest.mark.cuda
@@ -212,7 +215,8 @@ def test_sgd_on_cuda_matches_cpu(cuda):
     lv_c, r0_c, r1_c = tsgd.run_sgd(gt.Graph(gt.load_edgelist(RATINGS7),
                                              device=cuda))
     assert spmv_vec2.LAUNCHES["sgd"] == before + 20
-    lv_h, r0_h, r1_h = tsgd.run_sgd(gt.Graph(gt.load_edgelist(RATINGS7)))
+    lv_h, r0_h, r1_h = tsgd.run_sgd(gt.Graph(gt.load_edgelist(RATINGS7),
+                                             device="cpu"))
     assert abs(r0_c - r0_h) <= 1e-6 * r0_h and abs(r1_c - r1_h) <= 1e-6 * r1_h
     np.testing.assert_allclose(lv_c, lv_h, rtol=0, atol=1e-6)
     g_c = _ratings_graph(cuda, permute="degree")
@@ -246,8 +250,136 @@ def test_lda_on_cuda_matches_cpu(cuda, k, permute):
     n_c, gn_c, ll_c = tlda.run_lda(gt.Graph(e, device=cuda, permute=permute),
                                    9, 14, k=k, iterations=4)
     assert spmv_vec2.LAUNCHES["lda"] == before + 8
-    n_h, gn_h, ll_h = tlda.run_lda(gt.Graph(e, permute=permute), 9, 14, k=k,
+    n_h, gn_h, ll_h = tlda.run_lda(gt.Graph(e, permute=permute,
+                                            device="cpu"), 9, 14, k=k,
                                    iterations=4)
     np.testing.assert_allclose(n_c, n_h, rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(gn_c, gn_h, rtol=1e-5)
     assert abs(ll_c - ll_h) <= 1e-5 * abs(ll_h)
+
+
+# ------------------------------------------- the frontier apps' kernels
+
+
+def _rmat_graph(device, scale=12, **kw):
+    return gt.Graph(rmat_edgelist(scale, 16, seed=3, device=device),
+                    device=device, compact=False, **kw)
+
+
+@pytest.mark.parametrize("share", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("kind,op", [("min", "x_add_val"), ("sum", "x"),
+                                     ("min", "key_add_val")])
+def test_spmv_recv_final_and_keys_match_plain(cuda, kind, op, share):
+    g = _rmat_graph(cuda, build_in_edges=False)
+    c = g.csr("dst")
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(2)
+    bits = 13
+    if op == "key_add_val":
+        keys = spmv2u.KEY_BIAS + torch.randint(
+            0, 1 << 20, (g.n_pad,), generator=gen, device=cuda)
+        x = keys.to(torch.int32).view(torch.float32).clone()
+        val = torch.randint(1, 8, (c.nnz,), generator=gen,
+                            device=cuda).float()
+    else:
+        x = torch.randn(g.n_pad, generator=gen, device=cuda)
+        val = torch.randn(c.nnz, generator=gen, device=cuda)
+    sent = (torch.rand(g.n_pad, generator=gen, device=cuda) < 0.4).to(
+        torch.uint8)
+    rf = (torch.rand(g.n_pad, generator=gen, device=cuda) < share).to(
+        torch.uint8)
+    got = kind == "sum"
+    mode = "sparse_got_final" if got else "sparse_final"
+    before = spmv2u.LAUNCHES[mode]
+    kw = dict(val=val, sent=sent, want_got=got, recv_final=rf, bits=bits)
+    out = spmv2u.spmv(c, x, kind, op, **kw)
+    torch.cuda.synchronize()
+    assert spmv2u.LAUNCHES[mode] == before + 1
+    ref = spmv2u.spmv_reference(c, x, kind, op, **kw)
+    if got:
+        (out, cnt), (ref, cnt_ref) = out, ref
+        assert torch.equal(cnt, cnt_ref)
+        torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
+    else:
+        assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    assert bool((out[rf.bool()] == spmv2u.IDENTITY[kind]).all())
+
+
+@pytest.mark.parametrize("frontier", [None, 1e-4, 1e-2, 0.5])
+@pytest.mark.parametrize("op", ["x", "x_mul_val", "x_add_val"])
+@pytest.mark.parametrize("kind", ["sum", "min", "max"])
+def test_push_kernel_matches_plain(cuda, kind, op, frontier):
+    g = _rmat_graph(cuda, build_in_edges=False)
+    sc = g.sender_csr("dst")
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(4)
+    x = torch.randn(g.n_pad, generator=gen, device=cuda)
+    val = torch.randn(sc.nnz, generator=gen, device=cuda)
+    sent = None if frontier is None else (
+        torch.rand(g.n_pad, generator=gen, device=cuda) < frontier).to(
+            torch.uint8)
+    got = kind == "sum" and sent is not None
+    mode = "dense" if sent is None else ("sparse_got" if got else "sparse")
+    before = spmv2.LAUNCHES[mode]
+    out = spmv2.spmv_push(sc, x, kind, op, val=val, sent=sent,
+                          want_got=got)
+    torch.cuda.synchronize()
+    assert spmv2.LAUNCHES[mode] == before + 1
+    ref = spmv2.spmv_push_reference(sc, x, kind, op, val=val, sent=sent,
+                                    want_got=got)
+    if got:
+        (out, cnt), (ref, cnt_ref) = out, ref
+        assert torch.equal(cnt, cnt_ref)
+    if kind != "sum":
+        assert torch.equal(out, ref)
+        return
+    terms = spmv2u.PROCESS_OPS[op](x[sc.row.long()], val).abs()
+    if sent is not None:
+        terms = terms * sent[sc.row.long()].float()
+    bound = torch.zeros_like(out).index_add_(0, sc.col.long(), terms) * 1e-5
+    assert bool(((out - ref).abs() <= bound).all())
+
+
+def _app_runs(device):
+    """Every frontier app on one graph family, as numpy results."""
+    from graphmat_tpu_torch.apps import (bfs, connected_components as cc,
+                                         delta_stepping as ds,
+                                         incremental_pagerank as ipr,
+                                         sssp, topological_sort as ts)
+    e = rmat_edgelist(11, 16, seed=8)
+    w = np.random.default_rng(3).integers(1, 256, e.nnz)
+    ew = gt.EdgeList(e.m, e.n, e.src, e.dst, torch.as_tensor(
+        w, dtype=torch.float32))
+    g = gt.Graph(e, device=device, permute="degree")
+    gw = gt.Graph(ew, device=device, build_in_edges=False,
+                  permute="degree")
+    e_aug, pred0, ind1 = bfs.build_bfs_shortcuts(e)
+    out = {"bfs": bfs.run_bfs(g, 5), "cc": cc.run_connected_components(g),
+           "incpr": ipr.run_incremental_pagerank(g),
+           "sssp": sssp.run_sssp(gw, 5),
+           "delta": ds.run_delta_stepping(ew, 32, 5, device=device),
+           "bfs_fast": bfs.run_bfs_fast(gt.Graph(
+               e_aug, device=device, build_in_edges=False), 5, pred0, ind1),
+           "toposort": ts.run_topological_sort(gt.Graph(
+               gt.transforms.convert_to_dag(e), device=device,
+               permute="degree"))}
+    return out
+
+
+@pytest.mark.parametrize("route", ["v2u", "v2"])
+def test_frontier_apps_on_cuda_match_cpu(cuda, route, monkeypatch):
+    monkeypatch.setenv("GRAPHMAT_KERNEL", route)
+    before = (sum(spmv2u.LAUNCHES.values()), sum(spmv2.LAUNCHES.values()))
+    on_card = _app_runs(cuda)
+    after = (sum(spmv2u.LAUNCHES.values()), sum(spmv2.LAUNCHES.values()))
+    launched = [a - b for a, b in zip(after, before)]
+    assert launched[0 if route == "v2u" else 1] > 0
+    assert launched[1 if route == "v2u" else 0] == 0
+    on_host = _app_runs("cpu")
+    for app, res in on_card.items():
+        if app == "incpr":   # the pagerank; thresholds may move niter
+            a, b = res[0], on_host[app][0]
+            assert (abs(a - b) / np.maximum(1.0, abs(b))).max() <= 1e-5
+            continue
+        for a, b in zip(res, on_host[app]):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

@@ -11,7 +11,17 @@ PKG = pathlib.Path(__file__).resolve().parents[1] / "graphmat_tpu_torch"
 
 def test_import_loads_no_jax():
     code = ("import sys, graphmat_tpu_torch\n"
+            "import graphmat_tpu_torch.apps\n"
             "import graphmat_tpu_torch.apps.pagerank\n"
+            "import graphmat_tpu_torch.apps.bfs\n"
+            "import graphmat_tpu_torch.apps.sssp\n"
+            "import graphmat_tpu_torch.apps.connected_components\n"
+            "import graphmat_tpu_torch.apps.topological_sort\n"
+            "import graphmat_tpu_torch.apps.incremental_pagerank\n"
+            "import graphmat_tpu_torch.apps.delta_stepping\n"
+            "import graphmat_tpu_torch.core.graph_ops\n"
+            "import graphmat_tpu_torch.ops.spmv2\n"
+            "import graphmat_tpu_torch.io.transforms\n"
             "import graphmat_tpu_torch.utils.generators\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m == 'jax' or m.startswith(('jax.', 'graphmat_tpu.')))\n"

@@ -35,7 +35,7 @@ def edges(seed=11):
                                        (4, "degree")])
 def test_run_lda_matches_jax(k, permute):
     e = edges()
-    gtx = gt.Graph(e, permute=permute)
+    gtx = gt.Graph(e, permute=permute, device="cpu")
     n_t, gn_t, ll_t = tlda.run_lda(gtx, NDOC, NTERMS, k=k, iterations=4)
     n_j, gn_j, ll_j = jlda.run_lda(gj.Graph(e, permute=permute), NDOC,
                                    NTERMS, k=k, iterations=4)
@@ -48,7 +48,8 @@ def test_run_lda_matches_jax(k, permute):
 def test_tokens_are_conserved():
     """Each vertex's N sums to the tokens on its edges, both ways."""
     e = edges(seed=4)
-    n_t, _, _ = tlda.run_lda(gt.Graph(e), NDOC, NTERMS, k=6, iterations=3)
+    n_t, _, _ = tlda.run_lda(gt.Graph(e, device="cpu"), NDOC, NTERMS, k=6,
+                             iterations=3)
     tok = np.zeros(NDOC + NTERMS)
     np.add.at(tok, e.src - 1, e.val)
     np.add.at(tok, e.dst - 1, e.val)
@@ -69,7 +70,7 @@ def test_cli_matches_golden(monkeypatch):
 
 
 def _after_init(e, k, permute=False):
-    g = gt.Graph(e, permute=permute)
+    g = gt.Graph(e, permute=permute, device="cpu")
     is_doc = np.arange(g.n) < NDOC
     g.init_vertexproperty(N=np.zeros((g.n, k), np.float32), is_doc=is_doc)
     TEngine(tlda.LDAInitProgram(k), g).run(iterations=1)
@@ -112,7 +113,7 @@ def test_step_from_carried_jax_state_matches_jax(permute):
     state = eng_j.final_state            # numpy, from jax.device_get
 
     gtx = gt.Graph.from_numpy_state(e, gjx.perm, gjx.vp_numpy(),
-                                    np.asarray(gjx.active))
+                                    np.asarray(gjx.active), device="cpu")
     for name, v in gjx.vp_numpy().items():
         np.testing.assert_array_equal(gtx.vp_numpy()[name], v)
     st_t, _ = TEngine(tlda.LDAProgram(k, vocab_size=NTERMS, ndoc=NDOC),

@@ -37,7 +37,7 @@ def rmat_numpy(scale=10):
 
 def test_pagerank_matches_jax_on_test_mtx():
     e = gt.load_edgelist(TEST_MTX)
-    pr_t, it_t = tpr.run_pagerank(gt.Graph(e))
+    pr_t, it_t = tpr.run_pagerank(gt.Graph(e, device="cpu"))
     pr_j, it_j = jpr.run_pagerank(gj.Graph(gj.load_edgelist(TEST_MTX)))
     assert it_t == it_j == 6
     np.testing.assert_allclose(pr_t, np.asarray(pr_j), rtol=0, atol=2e-5)
@@ -70,7 +70,8 @@ def test_pagerank_matches_jax_on_rmat(permute, compact):
         _JAX_RMAT[permute] = np.asarray(jpr.run_pagerank(
             gj.Graph(e, permute=permute), iterations=20)[0])
     g = gt.Graph(e, permute=permute, compact=compact,
-                 compact_kw=SMALL_COMPACT if compact else None)
+                 compact_kw=SMALL_COMPACT if compact else None,
+                 device="cpu")
     assert all((g.csr(r).src_of_pos is not None) == compact
                for r in ("dst", "src"))
     pr, it = tpr.run_pagerank(g, iterations=20)
@@ -88,7 +89,7 @@ def _degree_done_jax_graph(e, permute):
 
 def _carry_over(gjx, e):
     return gt.Graph.from_numpy_state(
-        e, gjx.perm, gjx.vp_numpy(), np.asarray(gjx.active))
+        e, gjx.perm, gjx.vp_numpy(), np.asarray(gjx.active), device="cpu")
 
 
 @pytest.mark.parametrize("permute", [False, "degree"])
@@ -142,7 +143,7 @@ def test_segment_path_equals_semiring_path(permute):
     for name, (deg, pr) in {
             "kernel": (tpr.DegreeProgram, tpr.PageRankProgram),
             "segment": (_SegmentDegree, _SegmentPageRank)}.items():
-        g = gt.Graph(e, permute=permute)
+        g = gt.Graph(e, permute=permute, device="cpu")
         tpr.init_pagerank_graph(g)
         g.set_all_active()
         TEngine(deg(), g).run(iterations=1)
@@ -159,7 +160,7 @@ def test_segment_path_equals_semiring_path(permute):
 def test_vertex_api_matches_jax():
     e = rmat_numpy(8)
     gjx = gj.Graph(e, permute="degree")
-    gtx = gt.Graph(e, permute="degree")
+    gtx = gt.Graph(e, permute="degree", device="cpu")
     np.testing.assert_array_equal(gtx.perm.numpy(), gjx.perm)
     assert (gtx.n, gtx.n_pad) == (gjx.n, gjx.n_pad)
     np.testing.assert_array_equal(gtx.valid_vertex.numpy(),
@@ -173,7 +174,7 @@ def test_vertex_api_matches_jax():
     for k in ("a", "b"):
         np.testing.assert_array_equal(gtx.vp_numpy()[k], gjx.vp_numpy()[k])
     np.testing.assert_array_equal(gtx.active.numpy(), np.asarray(gjx.active))
-    g_rand_t = gt.Graph(e, permute=True)
+    g_rand_t = gt.Graph(e, permute=True, device="cpu")
     np.testing.assert_array_equal(g_rand_t.perm.numpy(),
                                   gj.Graph(e, permute=True).perm)
 

@@ -46,7 +46,8 @@ CASES = {
 def test_run_sgd_matches_jax(case):
     make, k, permute, kw = CASES[case]
     e = make()
-    gtx, gjx = gt.Graph(e, permute=permute), gj.Graph(e, permute=permute)
+    gtx = gt.Graph(e, permute=permute, device="cpu")
+    gjx = gj.Graph(e, permute=permute)
     tsgd.init_sgd_graph(gtx, k)
     jsgd.init_sgd_graph(gjx, k)
     lv0 = gtx.vp_numpy()["lv"]
@@ -69,7 +70,8 @@ def test_compacted_csr_gives_the_same_sgd():
     out = {}
     for compact in (False, True):
         g = gt.Graph(e, permute="degree", compact=compact,
-                     compact_kw=SMALL_COMPACT if compact else None)
+                     compact_kw=SMALL_COMPACT if compact else None,
+                     device="cpu")
         assert all((g.csr(r).src_of_pos is not None) == compact
                    for r in ("dst", "src"))
         out[compact] = tsgd.run_sgd(g, k=20, step=1e-4, iterations=3)
@@ -109,7 +111,7 @@ def test_step_from_carried_jax_state_matches_jax(permute):
     gjx.set_all_active()
     JEngine(jsgd.SGDProgram(step=1e-3), gjx).step_once()
     gtx = gt.Graph.from_numpy_state(e, gjx.perm, gjx.vp_numpy(),
-                                    np.asarray(gjx.active))
+                                    np.asarray(gjx.active), device="cpu")
     for name, v in gjx.vp_numpy().items():
         np.testing.assert_array_equal(gtx.vp_numpy()[name], v)
     before = dict(spmv_vec2.LAUNCHES)
@@ -140,7 +142,7 @@ def test_active_only_vec_program_runs_the_segment_path():
     e = random_edgelist(80, 5, seed=9, weight_range=5)
     out = []
     for prog in (tsgd.SGDProgram(step=1e-3), ActiveOnlySGD(step=1e-3)):
-        g = gt.Graph(e)
+        g = gt.Graph(e, device="cpu")
         tsgd.init_sgd_graph(g, 8)
         g.set_all_active()
         eng = TEngine(prog, g)

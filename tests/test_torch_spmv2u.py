@@ -50,13 +50,13 @@ def case(skew):
     s, r, v = rand_graph(N, E, seed=3 + skew, skew=skew)
     plan = build_spmv2u_plan(s, r, v, N, **PLAN_KW)
     g = Graph(edgelist_from_arrays(s + 1, r + 1, v, m=N, n=N),
-              build_in_edges=False, compact=False)
+              build_in_edges=False, compact=False, device="cpu")
     return s, r, v, plan, g
 
 
 def port_graph(s, r, v, n, **kw):
     return Graph(edgelist_from_arrays(s + 1, r + 1, v, m=n, n=n),
-                 build_in_edges=False, **kw)
+                 build_in_edges=False, **kw, device="cpu")
 
 
 def pad(a, size, fill=0):

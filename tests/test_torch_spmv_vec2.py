@@ -64,7 +64,7 @@ def plain_k3(op, k):
     """The port's K3 on CPU tensors (its plain version)."""
     x, vp, extra = inputs(op, k)
     g = gt.Graph(gt.EdgeList(_E.m, _E.n, _E.src, _E.dst, VAL),
-                 build_in_edges=False)
+                 build_in_edges=False, device="cpu")
     pad = g.n_pad - N
 
     def t(a):
@@ -165,7 +165,7 @@ def test_unknown_op_raises():
 
 def test_bad_operands_raise():
     g = gt.Graph(gt.EdgeList(_E.m, _E.n, _E.src, _E.dst, VAL),
-                 build_in_edges=False)
+                 build_in_edges=False, device="cpu")
     c = g.csr("dst")
     x = torch.zeros(g.n_pad, 4)
     with pytest.raises(ValueError, match="reads vp"):
