@@ -11,8 +11,9 @@ collaborative filtering and LDA (K3), then the scalar frontier apps (BFS,
 SSSP, connected components, topological sort, incremental PageRank,
 delta-stepping) on both kernel routes: K1 with its receiver-finality skip
 (``GRAPHMAT_KERNEL=v2u``) and the push kernel for K6/K7
-(``GRAPHMAT_KERNEL=v2``).  Phases, in order; any failure raises and the
-script exits non-zero:
+(``GRAPHMAT_KERNEL=v2``), then ACTIVE_ONLY K-wide programs on K3's sparse
+mode (K4, with K5's got count fused in).  Phases, in order; any failure
+raises and the script exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit) and the software;
 2. the kernel build, timed;
@@ -65,7 +66,22 @@ script exits non-zero:
     over the input edges within the reached component), one dense and one
     sparse BFS level on K1 beside the push, the SSSP dense sweep of
     bench.py:318-334 (GTEPS), the push kernel alone beside its plain
-    version and cuSPARSE, peak device memory.
+    version and cuSPARSE, peak device memory;
+16. K3's sparse mode against its plain version on phase 7's graph, every
+    op at K = 1, 20, 40 with 100%, 10%, 1% and 0.01% of senders sent (the
+    got count exact, at 100% bitwise the dense mode), and K5's function
+    through K1's op x (sum, min, max) against ``ops/spmv.py``;
+17. ACTIVE_ONLY subclasses of SGDProgram and RMSEProgram at MovieLens-25M
+    shape, K = 20, through ``Engine.step_once``: one SGD step from seeded
+    frontiers of 100%, 10% and 1% of the vertices against a float64
+    oracle of the masked step (at 100%, bitwise the ALL_VERTICES step);
+    RMSE from a 10% frontier against a float64 oracle (no term from a
+    sender that did not send, ROADMAP R4); five SGD steps in lock-step
+    with the plain route (sums, counts, next frontier); the sparse mode's
+    launch count over those runs; timings from CUDA events: the sparse
+    mode alone at each share beside dense K3 and its plain version, the
+    ACTIVE_ONLY step at each frontier, K5's function alone beside its
+    plain version and cuSPARSE, peak device memory.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Phase numbers given as arguments run
@@ -462,35 +478,83 @@ def k3_inputs(op, k, n, gen, device):
     return x, vp, 100.0 + 100.0 * rnd(k)
 
 
-def check_k3_case(csr, op, x, vp, extra, params, device):
-    """K3 against its plain version on one input; returns max |error|."""
+def k3_row_scale(csr, op, x, vp, extra, params, sent=None):
+    """The scale of each row's float32 rounding, in edge chunks: Σ|terms|
+    over the row's edges (those whose sender sent, where ``sent`` is
+    given), plus, for the SGD ops, each term's sensitivity to its K-term
+    dot product <x, vp_r> times that product's Σ|x_k vp_k|: the kernel
+    and the plain version sum the dot in other orders, which moves a term
+    by up to K units of that sum, more than 1e-5 of the term where the
+    error val - <x, vp_r> nearly cancels."""
     import torch
     from graphmat_tpu_torch.ops import spmv_vec2 as sv
+    total = torch.zeros((csr.n_rows, sv.out_width(op, x.shape[1])),
+                        dtype=torch.float32, device=x.device)
+    for c in chunked(csr.nnz):
+        colx, rowx = csr.col[c].long(), csr.row[c].long()
+        xe, vpe = x[colx], vp[rowx] if vp is not None else None
+        terms = sv.VEC_PROCESS_OPS[op](xe, csr.val_f32[c], vpe, extra,
+                                       params).abs()
+        if op in ("sgd", "sgd_sqerr"):
+            prod = xe * vpe
+            dot = prod.abs().sum(1, keepdim=True)
+            if op == "sgd":
+                terms += xe.abs() * dot
+            else:
+                err = csr.val_f32[c][:, None] - prod.sum(1, keepdim=True)
+                terms += 2 * err.abs() * dot
+        if sent is not None:
+            terms = terms * sent[colx][:, None].to(terms.dtype)
+        total.index_add_(0, rowx, terms)
+    return total
+
+
+def check_k3_case(csr, op, x, vp, extra, params, device, sent=None):
+    """K3 against its plain version on one input; returns max |error|.
+    With ``sent`` (uint8 per sender), K3's sparse mode: the got count
+    exactly, a row without a sent edge exactly 0, and with every sender
+    sent the dense mode's bits."""
+    import torch
+    from graphmat_tpu_torch.ops import spmv_vec as ss
+    from graphmat_tpu_torch.ops import spmv_vec2 as sv
     args = (csr.rowptr, csr.col, csr.val_f32, x, op, vp, extra, params)
-    before = sv.LAUNCHES[op]
-    out = sv.spmv_vec_csr(*args, row=csr.row)
-    sync(device)
-    if torch.device(device).type == "cuda" and sv.LAUNCHES[op] != before + 1:
-        raise AssertionError(f"K3 {op}: the kernel did not launch")
-    ref = sv.spmv_vec_csr_reference(*args, row=csr.row)
     what = f"K3 {op} K={x.shape[1]}"
+    counter = sv.LAUNCHES if sent is None else ss.LAUNCHES
+    before = counter[op]
+    if sent is None:
+        out = sv.spmv_vec_csr(*args, row=csr.row)
+    else:
+        what += f" sparse, {float(sent.float().mean()):.2%} sent"
+        sargs = args[:5] + (sent,) + args[5:]
+        out, got = ss.spmv_vec_sparse_csr(*sargs, row=csr.row)
+    sync(device)
+    if torch.device(device).type == "cuda" and counter[op] != before + 1:
+        raise AssertionError(f"{what}: the kernel did not launch")
+    if sent is None:
+        ref = sv.spmv_vec_csr_reference(*args, row=csr.row)
+        deg = csr.rowptr.diff()
+    else:
+        ref, got_ref = ss.spmv_vec_sparse_csr_reference(*sargs, row=csr.row)
+        if not torch.equal(got, got_ref):
+            raise AssertionError(f"{what}: got counts differ")
+        # the kernels' contract; the plain versions on the CPU were seen to
+        # differ in the last bits between two calls on the same input
+        if (torch.device(device).type == "cuda" and bool(sent.all())
+                and not torch.equal(out, sv.spmv_vec_csr(*args,
+                                                         row=csr.row))):
+            raise AssertionError(f"{what}: every sender sent, but the "
+                                 "sparse mode differs from the dense one")
+        deg = got
     if out.shape != ref.shape or not bool(torch.isfinite(out).all()):
         raise AssertionError(f"{what}: shape {tuple(out.shape)} or not "
                              "finite")
-    empty = csr.rowptr.diff() == 0
-    if not bool((out[empty] == 0).all()):
+    if not bool((out[deg == 0] == 0).all()):
         raise AssertionError(f"{what}: a row without edges is not 0")
     # the row's sum of |terms| bounds the reordering error
-    bound = torch.zeros_like(out)
-    for c in chunked(csr.nnz):
-        colx, rowx = csr.col[c].long(), csr.row[c].long()
-        terms = sv.VEC_PROCESS_OPS[op](
-            x[colx], csr.val_f32[c], vp[rowx] if vp is not None else None,
-            extra, params)
-        bound.index_add_(0, rowx, terms.abs())
+    bound = k3_row_scale(csr, op, x, vp, extra, params, sent)
     if op == "lda_init":
-        deg = csr.rowptr.diff().to(out.dtype)[:, None]
-        bound *= (2 * (deg - 1).clamp(min=0) + 2 * x.shape[1]) * F32_UNIT
+        degf = deg.to(out.dtype)[:, None]
+        bound *= (2 * (degf - 1).clamp(min=0) + 2 * x.shape[1]) * F32_UNIT
     else:
         bound *= SUM_RTOL
     err = (out - ref).abs()
@@ -605,15 +669,19 @@ def chunked(n, size=1 << 22):
     return [slice(a, min(a + size, n)) for a in range(0, n, size)]
 
 
-def sgd_oracle(src0, dst0, val, n, lv0, iters, lambda_=0.001, step=3.5e-7):
+def sgd_oracle(src0, dst0, val, n, lv0, iters, lambda_=0.001, step=3.5e-7,
+               sent=None):
     """Float64 SGD after tests/test_ml_apps.py:43-67, on the device, in
-    edge chunks: (lv after iters, rmse before, rmse after)."""
+    edge chunks: (lv after iters, rmse before, rmse after).  With
+    ``sent`` (bool per vertex) the steps are ACTIVE_ONLY ones from that
+    frontier, held fixed: only the edges whose sender is in it carry a
+    gradient, and only their receivers move."""
     import torch
     lv = lv0.double()
     v = val.double()
     got = torch.zeros(n, dtype=torch.bool, device=lv.device)
-    got[src0] = True
-    got[dst0] = True
+    for s, r in ((src0, dst0), (dst0, src0)):
+        got[r if sent is None else r[sent[s]]] = True
 
     def rmse(lv):
         tot = 0.0
@@ -628,7 +696,10 @@ def sgd_oracle(src0, dst0, val, n, lv0, iters, lambda_=0.001, step=3.5e-7):
             for c in chunked(len(v)):
                 xs, xr = lv[s[c]], lv[r[c]]
                 err = v[c] - (xs * xr).sum(1)
-                grad.index_add_(0, r[c], xs * err[:, None])
+                terms = xs * err[:, None]
+                if sent is not None:
+                    terms = terms * sent[s[c]][:, None]
+                grad.index_add_(0, r[c], terms)
         lv = torch.where(got[:, None], lv + step * (-lambda_ * lv + grad),
                          lv)
     return lv, r0, rmse(lv)
@@ -880,6 +951,16 @@ def phase_ml_timings(g_sgd, g_lda, gn_lda, card, k=20):
     k3_ops_ms = 4 * k * c_sgd.nnz / FP32_FLOPS * 1e3
     k3["sgd_bound_ms"] = max(hbm_ms(k3_bytes), k3_ops_ms)
     k3["sgd_bound_by"] = ("bytes" if hbm_ms(k3_bytes) >= k3_ops_ms
+                          else "operations")
+    # K3 lda's: rowptr, col, val, x and vp (K + 1 columns), extra and y
+    # (K columns) once; 8K operations an edge (two offsets, a product, a
+    # division and a sum for gamma, then a division, a product and a sum)
+    lda_bytes = 4 * (c_lda.rowptr.numel() + 2 * c_lda.nnz
+                     + (k + 1) * (c_lda.n_send + c_lda.n_rows) + k
+                     + k * c_lda.n_rows)
+    lda_ops_ms = 8 * k * c_lda.nnz / FP32_FLOPS * 1e3
+    k3["lda_bound_ms"] = max(hbm_ms(lda_bytes), lda_ops_ms)
+    k3["lda_bound_by"] = ("bytes" if hbm_ms(lda_bytes) >= lda_ops_ms
                           else "operations")
     out = {
         "card": card,
@@ -1640,6 +1721,325 @@ def phase_traversal_timings(card, report, gw, scale=22, edge_factor=16,
     return out
 
 
+# ------------------------------------------ the ACTIVE_ONLY K-wide route
+
+SPARSE_SHARES = (1.0, 0.1, 0.01, 1e-4)   # shares of senders sent (phase 16)
+ACTIVE_SHARES = (1.0, 0.1, 0.01)         # frontiers of phase 17
+LOCKSTEP_ITERS = 5
+CHANGED_TOL = 1e-7   # SGDProgram.changed's threshold
+
+
+def phase_sparse_kernels(device, users=60_000, items=20_000,
+                         ratings=1_000_000, seed=17):
+    """Phase 16: K3's sparse mode (K4 with K5's got count) against its
+    plain version, every op at K = 1, 20 and 40 with 100%, 10%, 1% and
+    0.01% of senders sent, on phase 7's graph: counts exact, rows without
+    a sent edge exactly 0, at 100% the dense mode's bits; K5's function
+    through K1's op ``x`` against ``ops/spmv.py``'s plain version (min
+    and max bitwise, the sum within the row bound)."""
+    import torch
+    from graphmat_tpu_torch import Graph
+    from graphmat_tpu_torch.ops import spmv as k5
+    e = ratings_edgelist(users, items, ratings, seed, device)
+    e.val = torch.ceil(e.val)   # integer counts, which lda_init needs
+    g = Graph(e, device=device, build_in_edges=False, compact=False)
+    csr = g.csr("dst")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    params = {"alpha": 1.0, "eta": 5.0, "vocab_size": items}
+    worst, cases = 0.0, 0
+    for k in (1, 20, 40):
+        for op in K3_OPS:
+            x, vp, extra = k3_inputs(op, k, g.n_pad, gen, device)
+            for share in SPARSE_SHARES:
+                sent = (torch.rand(g.n_pad, generator=gen, device=device)
+                        < share).to(torch.uint8)
+                worst = max(worst, check_k3_case(csr, op, x, vp, extra,
+                                                 params, device, sent=sent))
+                cases += 1
+    colx, rowx = csr.col.long(), csr.row.long()
+    k5_err = 0.0
+    for kind in ("sum", "min", "max"):
+        x = (torch.rand(g.n_pad, generator=gen, device=device) < 0.1).float()
+        if kind != "sum":
+            x = torch.randn(g.n_pad, generator=gen, device=device)
+        out = k5.spmv(csr, x, kind)
+        sync(device)
+        k5_err = max(k5_err, compare_out(
+            f"K5 {kind} through K1 op x", out,
+            k5.spmv_reference(csr, x, kind), kind,
+            sum_bound(rowx, colx, x[colx], csr.n_rows)))
+    log(f"phase 16: K3's sparse mode agrees in {cases} cases on n={g.n} "
+        f"nnz={csr.nnz} (max |err| {worst:.3e}; counts exact, 100% sent "
+        f"bitwise the dense mode); K5 through K1 op x in sum, min, max "
+        f"(max |err| {k5_err:.3e})")
+    return worst, k5_err
+
+
+def active_only(cls):
+    """``cls`` with ``activity = ACTIVE_ONLY`` (the JAX tests' pattern)."""
+    return type(f"ActiveOnly{cls.__name__}", (cls,),
+                {"activity": type(cls.activity).ACTIVE_ONLY})
+
+
+def sqerr_oracle(src0, dst0, val, n, lv, sent):
+    """Float64 ACTIVE_ONLY RMSE (IN_EDGES: a user receives from the items
+    it rated) from the frontier ``sent``: (per-vertex squared error, the
+    scale of its float32 rounding, got)."""
+    import torch
+    v = val.double()
+    sq = torch.zeros(n, dtype=torch.float64, device=lv.device)
+    scale = torch.zeros_like(sq)
+    got = torch.zeros(n, dtype=torch.bool, device=lv.device)
+    for c in chunked(len(v)):
+        ok = sent[dst0[c]]
+        s, r = dst0[c][ok], src0[c][ok]
+        prod = lv[s] * lv[r]
+        err = v[c][ok] - prod.sum(1)
+        sq.index_add_(0, r, err * err)
+        # err^2 and the dot product's rounding carried through it
+        scale.index_add_(0, r, err * err + err.abs() * prod.abs().sum(1))
+        got[r] = True
+    return sq, scale, got
+
+
+def sparse_bound(csr, sent, k, out_cols, ops_per_edge):
+    """The least time of one sparse-mode call: the bytes the function must
+    move (rowptr and every col, to find the sent edges; the sent flags;
+    the sent edges' values; each sent sender's row of x and each receiving
+    row of vp once; y and the count) against its operations on the sent
+    edges at the float32 rate.  Returns (ms, bound_by, sent edges)."""
+    import torch
+    colx = csr.col.long()
+    on = sent[colx].bool()
+    n_edges = int(on.sum())
+    senders = int(torch.unique(colx[on]).numel())
+    rows = int((torch.zeros(csr.n_rows, dtype=torch.int32,
+                            device=sent.device)
+                .index_add_(0, csr.row.long(), on.int()) > 0).sum())
+    nbytes = (4 * (csr.rowptr.numel() + csr.nnz + n_edges)
+              + sent.numel() + 4 * k * (senders + rows)
+              + 4 * (out_cols + 1) * csr.n_rows)
+    ops_ms = ops_per_edge * n_edges / FP32_FLOPS * 1e3
+    by = "bytes" if hbm_ms(nbytes) >= ops_ms else "operations"
+    return max(hbm_ms(nbytes), ops_ms), by, n_edges
+
+
+def phase_active_vec(device, card, users, items, ratings, k=20, seed=31,
+                     timings=None):
+    """Phase 17: ACTIVE_ONLY SGD and RMSE at MovieLens-25M shape on K3's
+    sparse mode, through ``Engine.step_once``: (a) one SGD step from
+    seeded frontiers of 100%, 10% and 1% of the vertices against the
+    float64 oracle (at 100%, the ALL_VERTICES step's bits); (b) RMSE from
+    a 10% frontier against a float64 oracle; (c) five SGD steps in
+    lock-step with the plain route; (d) timings (by default on the card
+    only: they need CUDA events).  Returns the main path's launch counts,
+    the worst kernel error and the results."""
+    import torch
+    from graphmat_tpu_torch import Graph
+    from graphmat_tpu_torch.apps import sgd
+    from graphmat_tpu_torch.core import runtime
+    from graphmat_tpu_torch.ops import spmv as k5
+    from graphmat_tpu_torch.ops import spmv_vec as ss
+    from graphmat_tpu_torch.ops import spmv_vec2 as sv
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    e = ratings_edgelist(users, items, ratings, seed, device)
+    g = Graph(e, device=device, permute=False)
+    n = g.n
+    src0, dst0 = e.src.long() - 1, e.dst.long() - 1
+    sgd.init_sgd_graph(g, k)
+    vp0 = g.vp
+    lv0 = vp0["lv"][:n].clone()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    frontier = {p: torch.rand(n, generator=gen, device=device) < p
+                for p in ACTIVE_SHARES}
+    eng = runtime.Engine(active_only(sgd.SGDProgram)(k=k), g)
+    eng_rmse = runtime.Engine(active_only(sgd.RMSEProgram)(k=k), g)
+
+    def start(mask):
+        g.vp = vp0
+        g.set_active_mask(mask)
+
+    for d in (ss.LAUNCHES, sv.LAUNCHES):
+        for op in d:
+            d[op] = 0
+    # (a) one SGD step from each frontier against the float64 oracle
+    res = {"card": card, "a": {}}
+    for p in ACTIVE_SHARES:
+        start(frontier[p])
+        eng.step_once()
+        lv = g.vp["lv"][:n]
+        lv_o, _, _ = sgd_oracle(src0, dst0, e.val, n, lv0, 1,
+                                sent=frontier[p])
+        err = float((lv.double() - lv_o).abs().max())
+        still = (lv_o == lv0.double()).all(1)
+        if err > SGD_LV_ATOL or not torch.equal(lv[still], lv0[still]):
+            raise AssertionError(f"phase 17a ({p:.0%} active): factors off "
+                                 f"the f64 oracle by {err}, or a vertex "
+                                 "without a message moved")
+        res["a"][f"{p:g}"] = {"active": int(frontier[p].sum()),
+                              "moved": int((~still).sum()),
+                              "max_abs_err": err}
+        if p == 1.0:
+            lv_all = lv.clone()
+
+    # (b) RMSE from a 10% frontier (ROADMAP R4: K4 would add val^2 for
+    # every item that did not send)
+    start(frontier[0.1])
+    eng_rmse.step_once()
+    sq = g.vp["sqerr"][:n].double()
+    sq_o, scale, got_o = sqerr_oracle(src0, dst0, e.val, n, lv0.double(),
+                                      frontier[0.1])
+    bad = (sq - sq_o).abs() > SUM_RTOL * scale
+    if bool(bad.any()) or bool((sq[~got_o] != 0).any()):
+        i = int(torch.argmax((sq - sq_o).abs() - SUM_RTOL * scale))
+        raise AssertionError(f"phase 17b: RMSE at vertex {i} is "
+                             f"{float(sq[i])}, oracle {float(sq_o[i])}")
+    n_sent = int(frontier[0.1][dst0].sum())
+    rmse, rmse_o = (float(torch.sqrt(t.sum() / n_sent)) for t in (sq, sq_o))
+    if abs(rmse - rmse_o) > SGD_RMSE_RTOL * rmse_o:
+        raise AssertionError(f"phase 17b: RMSE {rmse}, oracle {rmse_o}")
+    res["b"] = {"rmse": rmse, "rmse_oracle": rmse_o, "sent_edges": n_sent,
+                "receivers": int(got_o.sum())}
+
+    # (c) five SGD steps, each from the kernel route's state on both
+    # routes: the per-direction sums, the counts and the next frontier
+    def recording(fn, log):
+        def run(*a, **kw):
+            out = fn(*a, **kw)
+            log.append(out)
+            return out
+        return run
+    kernel_fn = runtime.spmv_vec_sparse
+    start(frontier[0.1])
+    lock = []
+    try:
+        for it in range(LOCKSTEP_ITERS):
+            vp_in, act_in = g.vp, g.active.clone()
+            rec_k, rec_p = [], []
+            runtime.spmv_vec_sparse = recording(kernel_fn, rec_k)
+            eng.step_once()
+            vp_k, act_k = g.vp, g.active
+            g.vp, g.active = vp_in, act_in.clone()
+            runtime.spmv_vec_sparse = recording(
+                ss.spmv_vec_sparse_reference, rec_p)
+            eng.step_once()
+            vp_p, act_p = g.vp, g.active
+            sent = (act_in & g.valid_vertex).to(torch.uint8)
+            err = 0.0
+            for recv, (yk, ck), (yp, cp) in zip(eng._receivers, rec_k,
+                                                rec_p):
+                what = f"phase 17c step {it} ({recv})"
+                if not torch.equal(ck, cp):
+                    raise AssertionError(f"{what}: got counts differ")
+                bound = k3_row_scale(g.csr(recv), "sgd", vp_in["lv"],
+                                    vp_in["lv"], None, {}, sent) * SUM_RTOL
+                d = (yk - yp).abs()
+                if not bool((d <= bound).all()):
+                    raise AssertionError(f"{what}: a sum is off by "
+                                         f"{float((d - bound).max())} past "
+                                         "its bound")
+                err = max(err, float(d.max()))
+            lv_in, lv_k, lv_p = vp_in["lv"], vp_k["lv"], vp_p["lv"]
+            # a frontier may differ only where the routes' factors differ
+            # and the change lies within two float32 ulps of the threshold
+            near = (((lv_p - lv_in).abs().amax(1) - CHANGED_TOL).abs()
+                    <= 2 * 2.0 ** -23 * lv_in.abs().amax(1).clamp(min=1.0))
+            free = near & (lv_k != lv_p).any(1)
+            flips = act_k != act_p
+            if bool((flips & ~free).any()):
+                raise AssertionError(f"phase 17c step {it}: the next "
+                                     f"frontiers differ at "
+                                     f"{int((flips & ~free).sum())} "
+                                     "vertices clear of the threshold")
+            lock.append({"active": int(sent.sum()),
+                         "next_active": int(act_k.sum()),
+                         "frontier_flips_at_threshold": int(flips.sum()),
+                         "max_abs_err": err})
+            g.vp, g.active = vp_k, act_k
+    finally:
+        runtime.spmv_vec_sparse = kernel_fn
+    res["c"] = lock
+    path = dict(ss.LAUNCHES)
+    log(f"phase 17: launches over (a)-(c): sparse mode {path}, dense K3 "
+        f"{dict(sv.LAUNCHES)}")
+    if cuda and (path["sgd"] < 2 * (len(ACTIVE_SHARES) + LOCKSTEP_ITERS)
+                 or path["sgd_sqerr"] < 1 or any(sv.LAUNCHES.values())):
+        raise AssertionError("phase 17: the main path missed the sparse "
+                             "mode, or ran dense K3")
+    worst = max([r["max_abs_err"] for r in lock])
+    # (a) at 100%: the ALL_VERTICES step on dense K3 gives the same bits
+    start(frontier[1.0])
+    runtime.Engine(sgd.SGDProgram(k=k), g).step_once()
+    if not torch.equal(g.vp["lv"][:n], lv_all):
+        raise AssertionError("phase 17a: with every vertex active the "
+                             "ACTIVE_ONLY step differs from the "
+                             "ALL_VERTICES one")
+    if not (cuda if timings is None else timings):
+        return path, worst, res
+
+    # (d) timings, one direction (users -> items), from CUDA events
+    csr = g.csr("dst")
+    lv = g.vp["lv"]
+    t = {"dense_k3_ms": event_ms(lambda: sv.spmv_vec(csr, lv, "sgd",
+                                                     vp=lv), 10)}
+    for p in SPARSE_SHARES:
+        sent = (torch.rand(g.n_pad, generator=gen, device=device)
+                < p).to(torch.uint8)
+        bound, by, n_edges = sparse_bound(csr, sent, k, k, 4 * k)
+        t[f"sparse_{p:g}"] = {
+            "sent_edges": n_edges,
+            "ms": event_ms(lambda: ss.spmv_vec_sparse(csr, lv, "sgd", sent,
+                                                      vp=lv), 10),
+            "plain_ms": event_ms(lambda: ss.spmv_vec_sparse_reference(
+                csr, lv, "sgd", sent, vp=lv), 3, warm=1),
+            "bound_ms": bound, "bound_by": by,
+            "max_abs_err": check_k3_case(csr, "sgd", lv, lv, None, {},
+                                         device, sent=sent)}
+    worst = max([worst] + [t[f"sparse_{p:g}"]["max_abs_err"]
+                           for p in SPARSE_SHARES])
+    step = {}
+    for p in ACTIVE_SHARES:
+        def one():
+            start(frontier[p])
+            eng.step_once()
+
+        def plain():
+            runtime.spmv_vec_sparse = ss.spmv_vec_sparse_reference
+            try:
+                one()
+            finally:
+                runtime.spmv_vec_sparse = kernel_fn
+        step[f"{p:g}"] = {"kernel_ms": event_ms(one, 5),
+                          "plain_ms": event_ms(plain, 3, warm=1)}
+    t["step"] = step
+    # K5's function alone (the got count of a 10% frontier) through K1's
+    # op x, its plain version and cuSPARSE, a yardstick never called
+    sentf = (torch.rand(g.n_pad, generator=gen, device=device)
+             < 0.1).float()
+    rowx, colx = csr.row.long(), csr.col.long()
+    got_err = compare_out("K5 got count at the slice's shape",
+                          k5.spmv(csr, sentf, "sum"),
+                          k5.spmv_reference(csr, sentf, "sum"), "sum",
+                          sum_bound(rowx, colx, sentf[colx], csr.n_rows))
+    t["k5"] = {
+        "ms": event_ms(lambda: k5.spmv(csr, sentf, "sum"), 20),
+        "plain_ms": event_ms(lambda: k5.spmv_reference(csr, sentf, "sum"),
+                             5),
+        "cusparse_ms": cusparse_ms(csr.rowptr, csr.col, sentf),
+        "bound_ms": hbm_ms(4 * (csr.rowptr.numel() + csr.nnz + csr.n_send
+                                + csr.n_rows)),
+        "max_abs_err": got_err}
+    t["max_memory_allocated_bytes"] = (torch.cuda.max_memory_allocated()
+                                       if cuda else None)
+    res["d"] = t
+    log("phase 17 (" + card + "): " + json.dumps(res))
+    return path, worst, res
+
+
 def kernel_record(name, source, replaces, launches, err, ms, plain_ms,
                   bound_ms, bound_by, library_ms):
     return {"name": name, "route": "cuda", "source": source,
@@ -1723,6 +2123,18 @@ def main(argv=None):
     if want(15):
         t4 = phase_traversal_timings(card, trav, gw)
         push_err = max(push_err, t4["push_dense_sum"]["max_abs_err"])
+    if want(14):
+        del gw
+
+    k4_err = k5_err = 0.0
+    if want(16):
+        k4_err, k5_err = phase_sparse_kernels("cuda")
+    if want(17):
+        k4_path, k4_err_slice, t5 = phase_active_vec(
+            "cuda", card, MOVIELENS_25M["users"], MOVIELENS_25M["items"],
+            MOVIELENS_25M["ratings"])
+        k4_err = max(k4_err, k4_err_slice)
+        k5_err = max(k5_err, t5["d"]["k5"]["max_abs_err"])
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     if only:
         return
@@ -1735,6 +2147,7 @@ def main(argv=None):
     k2_path = k2["aux_gather"] + total("k2")
     log(card)
     pd = t4["push_dense_sum"]
+    sp, k5t = t5["d"]["sparse_0.1"], t5["d"]["k5"]
     kernels = {"kernels": [
         kernel_record(
             "spmv2u", "graphmat_tpu_torch/csrc/spmv2u.cu",
@@ -1757,6 +2170,21 @@ def main(argv=None):
             "graphmat_tpu/ops/pallas_spmv2.py:388 and :1154",
             total("push"), push_err, pd["ms"],
             pd["plain_ms"], pd["bound_ms"], "bytes", pd["cusparse_ms"]),
+        # K4: the sparse mode, sgd, one direction, 10% of senders sent
+        kernel_record(
+            "spmv_vec2_sparse", "graphmat_tpu_torch/csrc/spmv_vec2.cu",
+            "graphmat_tpu/ops/pallas_spmv_vec.py:65",
+            sum(k4_path.values()), k4_err, sp["ms"], sp["plain_ms"],
+            sp["bound_ms"], sp["bound_by"], None),
+        # K5: fused into every sparse-mode launch as its got count; timed
+        # alone as K1 with op x over the sent bits of a 10% frontier
+        kernel_record(
+            "spmv_vec2_sparse got count (alone: spmv2u op x)",
+            "graphmat_tpu_torch/csrc/spmv_vec2.cu and "
+            "graphmat_tpu_torch/csrc/spmv2u.cu",
+            "graphmat_tpu/ops/pallas_spmv.py:254",
+            sum(k4_path.values()), k5_err, k5t["ms"], k5t["plain_ms"],
+            k5t["bound_ms"], "bytes", k5t["cusparse_ms"]),
     ]}
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -19,9 +19,10 @@ reference (per element)          here (vectorized)
 Vertex properties and messages are tensors or dicts of tensors; program
 state is any such container.  A program that declares a :class:`Semiring`
 runs its SpMV on a hand-written scalar kernel: K1 by default, the push
-kernel (K6/K7) under ``GRAPHMAT_KERNEL=v2``; an ALL_VERTICES program that
-declares a :class:`VecSemiring` runs it on the K-wide kernel (K3); any
-other runs the plain segment reduce of
+kernel (K6/K7) under ``GRAPHMAT_KERNEL=v2``; a program that declares a
+:class:`VecSemiring` runs it on the K-wide kernel (K3 for ALL_VERTICES,
+its sparse mode for ACTIVE_ONLY); any other runs the plain segment reduce
+of
 :mod:`graphmat_tpu_torch.ops.segment`.
 """
 
@@ -95,12 +96,18 @@ class Semiring:
 
 @dataclass(frozen=True)
 class VecSemiring:
-    """A K-wide, three-operand program's semiring in the form the K3
-    kernel executes; the counterpart of ``PallasVec2Semiring``.
+    """A K-wide, three-operand program's semiring in the form the K-wide
+    kernel executes; the counterpart of ``PallasVec2Semiring`` (the
+    ALL_VERTICES route, K3) and ``PallasVecSemiring`` (the ACTIVE_ONLY
+    route, K4).
 
-    ⊕ is sum; the engine zeroes the rows of senders that did not send, so
-    ⊗ must absorb a zero message.  Only ALL_VERTICES programs run it (got
-    comes from the graph's structure).
+    ⊕ is sum.  For an ALL_VERTICES program the engine runs dense K3 on
+    zeroed rows of the senders that did not send (a send mask), so ⊗ must
+    absorb a zero message there, and got comes from the graph's
+    structure.  For an ACTIVE_ONLY program it runs K3's sparse mode, which
+    drops the edges of senders that did not send and counts the others
+    (got = a count > 0): ⊗ need not absorb a zero message (RMSE's and
+    LDA's do not).
 
     * ``k``: the row width of the encoded message (and of ``vp``);
     * ``process_op``: the name of ⊗ in the kernel's closed set

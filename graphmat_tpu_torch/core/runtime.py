@@ -4,9 +4,13 @@ Counterpart of ``graphmat_tpu/core/runtime.py``.  One iteration (the step
 of runtime.py:278-352, after ``include/GraphMatRuntime.h:94-279``):
 
 1. send: every vertex's message; ``sent = active & valid [& send_mask]``;
-2. one SpMV per receiver direction: on the K-wide kernel K3
-   (:func:`graphmat_tpu_torch.ops.spmv_vec2.spmv_vec`) for an ALL_VERTICES
-   program with a :class:`VecSemiring`; for a program with a
+2. one SpMV per receiver direction: for a program with a
+   :class:`VecSemiring`, on the K-wide kernel, dense K3
+   (:func:`graphmat_tpu_torch.ops.spmv_vec2.spmv_vec`, got from the
+   graph's structure) for an ALL_VERTICES program, its sparse mode
+   (:func:`graphmat_tpu_torch.ops.spmv_vec.spmv_vec_sparse`, which skips
+   the senders that did not send and counts the others: K4 with K5's got
+   pass) for an ACTIVE_ONLY one; for a program with a
    :class:`Semiring`, on the scalar kernel the JAX package's selector
    ``GRAPHMAT_KERNEL`` names (:func:`legacy_kernel_env`): ``v2u``, the
    default, runs K1 (:func:`graphmat_tpu_torch.ops.spmv2u.spmv`) over the
@@ -36,6 +40,7 @@ from ..ops.segment import (masked_fill_identity, segment_any,
                            segment_reduce_tree)
 from ..ops.spmv2 import spmv_push
 from ..ops.spmv2u import IDENTITY, spmv
+from ..ops.spmv_vec import spmv_vec_sparse
 from ..ops.spmv_vec2 import spmv_vec
 from .graph import Graph
 from .program import GraphProgram, IterationContext, Semiring, VecSemiring
@@ -122,13 +127,11 @@ class Engine:
         self.graph = graph
         self.ctx = ctx if ctx is not None else IterationContext()
         self._semiring = _normalize_semiring(program.semiring())
-        # K3 takes got from the graph's structure, so only ALL_VERTICES
-        # programs run it.  JAX sends a vec semiring on an ACTIVE_ONLY
-        # program to its K4 kernel, which is not ported (ROADMAP Queue 2):
-        # here such a program runs the plain segment path.
-        self._vec: Optional[VecSemiring] = (
-            program.vec_semiring()
-            if program.activity == Activity.ALL_VERTICES else None)
+        # dense K3 for ALL_VERTICES, its sparse mode for ACTIVE_ONLY; the
+        # JAX package's fallback from K4 past a VMEM budget
+        # (graphmat_tpu/core/runtime.py:162-179) has no counterpart: the
+        # card's kernel reads its operands from device memory
+        self._vec: Optional[VecSemiring] = program.vec_semiring()
         self._receivers = _direction_receivers(program.order)
         for recv in self._receivers:
             graph.csr(recv)   # raises if the direction was not built
@@ -181,12 +184,20 @@ class Engine:
         return sem.decode(y), got
 
     def _vec_directions(self, state, msg, sent, vp):
-        """All directions through the K-wide kernel: (reduced, got)."""
+        """All directions through the K-wide kernel: (reduced, got).  An
+        ALL_VERTICES program runs dense K3 on zeroed rows of the senders
+        that did not send, with got from the graph's structure; an
+        ACTIVE_ONLY one runs the sparse mode, which skips those senders'
+        edges and counts the others: got is a count > 0."""
         sem = self._vec
+        dense = self.program.activity == Activity.ALL_VERTICES
         # the kernel takes the encoded width, as JAX's engine does
         # (runtime.py:529), even where it differs from sem.k
         x = sem.encode(state, msg).to(torch.float32)
-        x = x.masked_fill(~sent[:, None], 0.0).contiguous()
+        if dense:
+            x = x.masked_fill(~sent[:, None], 0.0)
+        x = x.contiguous()
+        sent_u8 = None if dense else sent.to(torch.uint8)
         vp_enc = (sem.encode_vp(state, vp).to(torch.float32).contiguous()
                   if sem.needs_vp else None)
         extra = (sem.extra_fn(state).to(torch.float32).reshape(-1)
@@ -194,13 +205,20 @@ class Engine:
         y = got = None
         for recv in self._receivers:
             csr = self.graph.csr(recv)
-            y_dir = spmv_vec(csr, x, sem.process_op, vp=vp_enc, extra=extra,
-                             params=sem.params)
+            if dense:
+                y_dir = spmv_vec(csr, x, sem.process_op, vp=vp_enc,
+                                 extra=extra, params=sem.params)
+                g_dir = csr.got_static
+            else:
+                y_dir, cnt = spmv_vec_sparse(csr, x, sem.process_op,
+                                             sent_u8, vp=vp_enc, extra=extra,
+                                             params=sem.params)
+                g_dir = cnt > 0
             if y is None:
-                y, got = y_dir, csr.got_static
+                y, got = y_dir, g_dir
             else:
                 y = y + y_dir
-                got = got | csr.got_static
+                got = got | g_dir
         return sem.decode(y), got
 
     def _segment_directions(self, state, msg, sent, vp):

@@ -2,11 +2,27 @@
 //
 //   y[r, :] = sum_{s->r} process(x[s, :], val_e, vp[r, :], extra)
 //
-// Replaces the TPU kernel graphmat_tpu/ops/pallas_spmv_vec2.py:
-// _make_vec2_kernel (driven by _spmv_vec2_seg and spmv_vec2).  It computes
-// the same function, not the TPU layout: no V4 rows of four 32-lane slots,
-// window classes, WYK receiver windows, rotations, bf16 split planes or
-// range-prefix-sum scatter (those served VMEM and the MXU).  The input is
+// and, in its sparse mode, K4 with K5's got pass fused in:
+//
+//   y[r, :] = sum_{s->r, sent[s]} process(x[s, :], val_e, vp[r, :], extra)
+//   got[r]  = #{s->r : sent[s]}
+//
+// The dense mode replaces the TPU kernel
+// graphmat_tpu/ops/pallas_spmv_vec2.py: _make_vec2_kernel (driven by
+// _spmv_vec2_seg and spmv_vec2), which serves ALL_VERTICES programs.  The
+// sparse mode replaces graphmat_tpu/ops/pallas_spmv_vec.py:
+// _make_vec_kernel (driven by _spmv_vec_call and spmv_vec), the ACTIVE_ONLY
+// route, together with the got pass the JAX engine runs after it through
+// graphmat_tpu/ops/pallas_spmv.py: _make_kernel (K5, the scalar SpMV of the
+// sent bits with the identity process).  Unlike K4, an edge whose sender
+// did not send contributes nothing, for every op: K4 only masks pad edges,
+// so ops for which process(0, ...) != 0 (sgd_sqerr, lda, lda_loglik,
+// lda_init) add terms of senders that did not send; the XLA path, and
+// GraphMat, do not.  Both modes compute the same function as the TPU
+// kernels, not their layout: no V4 rows of four 32-lane slots, window
+// classes, WYK receiver windows, rotations, one-hot MXU gathers, bf16 split
+// planes or range-prefix-sum scatter (those served VMEM and the MXU).  A
+// row with no sent edge writes 0 and a count of 0.  The input is
 // the receiver CSR of graphmat_tpu_torch (rowptr over receivers, col =
 // sender of each edge, edges sorted by (receiver, sender)); x is
 // [n_send, k] and vp [n_rows, k], both row-major float32.
@@ -45,6 +61,16 @@
 // and writes y[r, :] once: no atomics, so a sum is bitwise repeatable.  A
 // row with no edges writes 0.  Long rows run on one warp; load balancing
 // is later work, as for K1.
+//
+// The sparse mode keeps that structure.  For each group of 32 edges each
+// lane loads its edge's sender flag (a dependent byte gather); a ballot
+// skips the group when no sender in it sent, else the warp walks only the
+// set bits, lowest first, so edges are summed in the dense mode's order:
+// with every sender sent the two modes give the same bits.  The popcount
+// of the ballots is the row's got count, written once by lane 0: K5's one
+// use in the JAX engine costs no second pass.  At a sparse frontier the
+// walk over col still reads every edge of the row; a frontier worklist is
+// later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -87,13 +113,15 @@ __device__ __forceinline__ float rand_r_uniform(uint32_t st) {
 
 // s0, s1, s2: for lda, alpha, eta and V * (eta - 1); for lda_loglik,
 // eta - 1; unused otherwise.
-template <int OP, int NPL>
+template <int OP, int NPL, bool SPARSE>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 spmv_vec2_kernel(const int* __restrict__ rowptr, const int* __restrict__ col,
                  const float* __restrict__ val, const float* __restrict__ x,
                  const float* __restrict__ vp,
-                 const float* __restrict__ extra, float* __restrict__ y,
-                 int n_rows, int k, float s0, float s1, float s2) {
+                 const float* __restrict__ extra,
+                 const uint8_t* __restrict__ sent, float* __restrict__ y,
+                 int* __restrict__ got, int n_rows, int k, float s0,
+                 float s1, float s2) {
   const int lane = threadIdx.x & 31;
   const int nwarps = (gridDim.x * blockDim.x) >> 5;
   const int nc = components<OP>(k);
@@ -151,68 +179,85 @@ spmv_vec2_kernel(const int* __restrict__ rowptr, const int* __restrict__ col,
 #pragma unroll
     for (int i = 0; i < NPL; ++i) acc[i] = 0.0f;
 
+    // one edge: sender s, value v; the same code for both modes
+    auto edge = [&](int s, float v) {
+      const float* xs = x + static_cast<size_t>(s) * k + lane;
+      float xv[NPL];
+#pragma unroll
+      for (int i = 0; i < NPL; ++i)
+        xv[i] = (OP != kLdaInit && live[i]) ? __ldg(xs + 32 * i) : 0.0f;
+
+      if (OP == kSgd || OP == kSgdSqerr) {
+        float d = 0.0f;
+#pragma unroll
+        for (int i = 0; i < NPL; ++i) d += xv[i] * rv[i];
+        const float err = v - warp_sum(d);
+        if (OP == kSgd) {
+#pragma unroll
+          for (int i = 0; i < NPL; ++i) acc[i] += xv[i] * err;
+        } else {
+          acc[0] += err * err;
+        }
+      } else if (OP == kLdaInit || OP == kLda) {
+        float g[NPL];
+        float t = 0.0f;
+#pragma unroll
+        for (int i = 0; i < NPL; ++i) {
+          g[i] = 0.0f;
+          if (live[i]) {
+            if (OP == kLdaInit) {
+              const uint32_t seed =
+                  static_cast<uint32_t>(static_cast<int>(v));
+              g[i] = rand_r_uniform(jump_a[i] * seed + jump_c[i]);
+            } else {
+              g[i] = (rv[i] * ((xv[i] + other_off) - 1.0f)) / ex[i];
+            }
+          }
+          t += g[i];
+        }
+        const float tot = warp_sum(t);
+#pragma unroll
+        for (int i = 0; i < NPL; ++i) acc[i] += (g[i] / tot) * v;
+      } else {  // kLdaLoglik
+        float th[NPL];
+        float t = 0.0f;
+#pragma unroll
+        for (int i = 0; i < NPL; ++i) {
+          th[i] = live[i] ? xv[i] + s0 : 0.0f;
+          t += th[i];
+        }
+        const float th_tot = warp_sum(t);
+        float d = 0.0f;
+#pragma unroll
+        for (int i = 0; i < NPL; ++i)
+          if (live[i]) d += rv[i] * (th[i] / th_tot);
+        acc[0] += v * logf(warp_sum(d));
+      }
+    };
+
+    int cnt = 0;
     for (int base = start; base < end; base += 32) {
       const int e = base + lane;
       const int my_col = e < end ? __ldg(col + e) : 0;
       const float my_val = e < end ? __ldg(val + e) : 0.0f;
-      const int n = min(32, end - base);
-      for (int j = 0; j < n; ++j) {
-        const int s = __shfl_sync(0xffffffffu, my_col, j);
-        const float v = __shfl_sync(0xffffffffu, my_val, j);
-        const float* xs = x + static_cast<size_t>(s) * k + lane;
-        float xv[NPL];
-#pragma unroll
-        for (int i = 0; i < NPL; ++i)
-          xv[i] = (OP != kLdaInit && live[i]) ? __ldg(xs + 32 * i) : 0.0f;
-
-        if (OP == kSgd || OP == kSgdSqerr) {
-          float d = 0.0f;
-#pragma unroll
-          for (int i = 0; i < NPL; ++i) d += xv[i] * rv[i];
-          const float err = v - warp_sum(d);
-          if (OP == kSgd) {
-#pragma unroll
-            for (int i = 0; i < NPL; ++i) acc[i] += xv[i] * err;
-          } else {
-            acc[0] += err * err;
-          }
-        } else if (OP == kLdaInit || OP == kLda) {
-          float g[NPL];
-          float t = 0.0f;
-#pragma unroll
-          for (int i = 0; i < NPL; ++i) {
-            g[i] = 0.0f;
-            if (live[i]) {
-              if (OP == kLdaInit) {
-                const uint32_t seed =
-                    static_cast<uint32_t>(static_cast<int>(v));
-                g[i] = rand_r_uniform(jump_a[i] * seed + jump_c[i]);
-              } else {
-                g[i] = (rv[i] * ((xv[i] + other_off) - 1.0f)) / ex[i];
-              }
-            }
-            t += g[i];
-          }
-          const float tot = warp_sum(t);
-#pragma unroll
-          for (int i = 0; i < NPL; ++i) acc[i] += (g[i] / tot) * v;
-        } else {  // kLdaLoglik
-          float th[NPL];
-          float t = 0.0f;
-#pragma unroll
-          for (int i = 0; i < NPL; ++i) {
-            th[i] = live[i] ? xv[i] + s0 : 0.0f;
-            t += th[i];
-          }
-          const float th_tot = warp_sum(t);
-          float d = 0.0f;
-#pragma unroll
-          for (int i = 0; i < NPL; ++i)
-            if (live[i]) d += rv[i] * (th[i] / th_tot);
-          acc[0] += v * logf(warp_sum(d));
+      if (SPARSE) {
+        unsigned m = __ballot_sync(
+            0xffffffffu, e < end && __ldg(sent + my_col) != 0);
+        cnt += __popc(m);
+        while (m != 0u) {   // m is the same in every lane
+          const int j = __ffs(m) - 1;
+          m &= m - 1u;
+          edge(__shfl_sync(0xffffffffu, my_col, j),
+               __shfl_sync(0xffffffffu, my_val, j));
         }
+      } else {
+        const int n = min(32, end - base);
+        for (int j = 0; j < n; ++j)
+          edge(__shfl_sync(0xffffffffu, my_col, j),
+               __shfl_sync(0xffffffffu, my_val, j));
       }
     }
+    if (SPARSE && lane == 0) got[row] = cnt;
 
     if (OP == kSgdSqerr || OP == kLdaLoglik) {
       if (lane == 0) y[row] = acc[0];  // every lane holds the same sum
@@ -232,26 +277,41 @@ struct Args {
   const float* x;
   const float* vp;
   const float* extra;
+  const uint8_t* sent;
   float* y;
+  int* got;
   int n_rows, k;
   float s0, s1, s2;
 };
 
-template <int OP, int NPL>
+template <int OP, int NPL, bool SPARSE>
 void launch(dim3 grid, cudaStream_t st, const Args& a) {
-  spmv_vec2_kernel<OP, NPL><<<grid, kWarpsPerBlock * 32, 0, st>>>(
-      a.rowptr, a.col, a.val, a.x, a.vp, a.extra, a.y, a.n_rows, a.k, a.s0,
-      a.s1, a.s2);
+  spmv_vec2_kernel<OP, NPL, SPARSE><<<grid, kWarpsPerBlock * 32, 0, st>>>(
+      a.rowptr, a.col, a.val, a.x, a.vp, a.extra, a.sent, a.y, a.got,
+      a.n_rows, a.k, a.s0, a.s1, a.s2);
 }
 
-template <int OP>
+template <int OP, bool SPARSE>
 bool launch_width(int npl, dim3 grid, cudaStream_t st, const Args& a) {
   switch (npl) {
-    case 1: launch<OP, 1>(grid, st, a); return true;
-    case 2: launch<OP, 2>(grid, st, a); return true;
-    case 3: launch<OP, 3>(grid, st, a); return true;
-    case 4: launch<OP, 4>(grid, st, a); return true;
-    case 5: launch<OP, 5>(grid, st, a); return true;
+    case 1: launch<OP, 1, SPARSE>(grid, st, a); return true;
+    case 2: launch<OP, 2, SPARSE>(grid, st, a); return true;
+    case 3: launch<OP, 3, SPARSE>(grid, st, a); return true;
+    case 4: launch<OP, 4, SPARSE>(grid, st, a); return true;
+    case 5: launch<OP, 5, SPARSE>(grid, st, a); return true;
+  }
+  return false;
+}
+
+template <bool SPARSE>
+bool launch_op(int op, int npl, dim3 grid, cudaStream_t st, const Args& a) {
+  switch (op) {
+    case kSgd: return launch_width<kSgd, SPARSE>(npl, grid, st, a);
+    case kSgdSqerr: return launch_width<kSgdSqerr, SPARSE>(npl, grid, st, a);
+    case kLdaInit: return launch_width<kLdaInit, SPARSE>(npl, grid, st, a);
+    case kLda: return launch_width<kLda, SPARSE>(npl, grid, st, a);
+    case kLdaLoglik:
+      return launch_width<kLdaLoglik, SPARSE>(npl, grid, st, a);
   }
   return false;
 }
@@ -262,13 +322,15 @@ bool launch_width(int npl, dim3 grid, cudaStream_t st, const Args& a) {
 // 4 lda_loglik.  k is the row width of x and vp (for lda the topics plus
 // the flag column), at most 160.  vp may be null for lda_init, extra for
 // the ops other than lda and lda_loglik.  y holds n_rows rows of the op's
-// output width.  Returns cudaGetLastError(), or cudaErrorInvalidValue for
-// arguments the kernel does not take.
+// output width.  sent (one byte per sender) and got (one int32 per row)
+// are both null for the dense mode and both given for the sparse mode.
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for arguments the
+// kernel does not take.
 extern "C" int gm_spmv_vec2(const void* rowptr, const void* col,
                             const void* val, const void* x, const void* vp,
-                            const void* extra, void* y, int n_rows, int k,
-                            int op, float s0, float s1, float s2,
-                            void* stream) {
+                            const void* extra, const void* sent, void* y,
+                            void* got, int n_rows, int k, int op, float s0,
+                            float s1, float s2, void* stream) {
   const int nc = op == kLda ? k - 1 : k;
   if (n_rows <= 0 || nc < 1 || k > 32 * kMaxPerLane || op < kSgd ||
       op > kLdaLoglik)
@@ -276,6 +338,8 @@ extern "C" int gm_spmv_vec2(const void* rowptr, const void* col,
   if (op != kLdaInit && vp == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if ((op == kLda || op == kLdaLoglik) && extra == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((sent == nullptr) != (got == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int npl = (nc + 31) / 32;
   // a warp per row up to 2^23 rows; beyond that the warps stride over rows
@@ -289,16 +353,12 @@ extern "C" int gm_spmv_vec2(const void* rowptr, const void* col,
                static_cast<const float*>(x),
                static_cast<const float*>(vp),
                static_cast<const float*>(extra),
+               static_cast<const uint8_t*>(sent),
                static_cast<float*>(y),
+               static_cast<int*>(got),
                n_rows, k, s0, s1, s2};
-  bool ok = false;
-  switch (op) {
-    case kSgd: ok = launch_width<kSgd>(npl, grid, st, a); break;
-    case kSgdSqerr: ok = launch_width<kSgdSqerr>(npl, grid, st, a); break;
-    case kLdaInit: ok = launch_width<kLdaInit>(npl, grid, st, a); break;
-    case kLda: ok = launch_width<kLda>(npl, grid, st, a); break;
-    case kLdaLoglik: ok = launch_width<kLdaLoglik>(npl, grid, st, a); break;
-  }
+  const bool ok = sent != nullptr ? launch_op<true>(op, npl, grid, st, a)
+                                  : launch_op<false>(op, npl, grid, st, a);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

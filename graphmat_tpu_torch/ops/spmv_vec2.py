@@ -114,7 +114,8 @@ def _extra_len(op: str, k: int):
     return {"lda": k - 1, "lda_loglik": k}.get(op)
 
 
-def _check(rowptr, col, val, x, op, vp, extra, params):
+def check(rowptr, col, val, x, op, vp, extra, params):
+    """Raise on operands the kernel does not take."""
     if op not in VEC_PROCESS_OPS:
         raise ValueError(f"process_op {op!r} is not one of "
                          f"{sorted(VEC_PROCESS_OPS)}")
@@ -156,10 +157,13 @@ def _check(rowptr, col, val, x, op, vp, extra, params):
 
 
 def spmv_vec_csr_reference(rowptr, col, val, x, op, vp=None, extra=None,
-                           params=None, row=None):
+                           params=None, row=None, sent=None):
     """Plain version of K3: per block of edges, gather ``x[col]`` and
     ``vp[row]``, apply ⊗, ``index_add_`` into a zero ``y``.  ``row`` (the
-    receiver of each edge) is derived from ``rowptr`` when not given."""
+    receiver of each edge) is derived from ``rowptr`` when not given.
+    With ``sent`` (uint8 per sender; the sparse mode), the edges whose
+    sender did not send are dropped before ⊗, and the int32 count of the
+    others per row is returned too: ``(y, got)``."""
     n_rows = rowptr.numel() - 1
     if row is None:
         row = torch.repeat_interleave(
@@ -167,13 +171,19 @@ def spmv_vec_csr_reference(rowptr, col, val, x, op, vp=None, extra=None,
     fn = VEC_PROCESS_OPS[op]
     y = torch.zeros((n_rows, out_width(op, x.shape[1])),
                     dtype=torch.float32, device=x.device)
+    got = (torch.zeros(n_rows, dtype=torch.int32, device=x.device)
+           if sent is not None else None)
     for e0 in range(0, col.numel(), REF_CHUNK):
         c = col[e0:e0 + REF_CHUNK].long()
         r = row[e0:e0 + REF_CHUNK].long()
+        v = val[e0:e0 + REF_CHUNK]
+        if sent is not None:
+            ok = sent[c].bool()
+            got.index_add_(0, r, ok.to(torch.int32))
+            c, r, v = c[ok], r[ok], v[ok]
         vp_e = vp[r] if op in _NEEDS_VP else None
-        y.index_add_(0, r, fn(x[c], val[e0:e0 + REF_CHUNK], vp_e, extra,
-                              params))
-    return y
+        y.index_add_(0, r, fn(x[c], v, vp_e, extra, params))
+    return y if sent is None else (y, got)
 
 
 def _scalars(op, params):
@@ -186,6 +196,29 @@ def _scalars(op, params):
     return (0.0, 0.0, 0.0)
 
 
+def launch(rowptr, col, val, x, op, vp, extra, params, sent=None):
+    """One launch of ``csrc/spmv_vec2.cu`` on checked CUDA tensors: the
+    dense mode, or with ``sent`` the sparse mode, which returns
+    ``(y, got)``.  The callers count the launch."""
+    n_rows = rowptr.numel() - 1
+    y = torch.empty((n_rows, out_width(op, x.shape[1])),
+                    dtype=torch.float32, device=x.device)
+    got = (torch.empty(n_rows, dtype=torch.int32, device=x.device)
+           if sent is not None else None)
+    if n_rows > 0:
+        lib = _lib.load()
+        rc = lib.gm_spmv_vec2(
+            rowptr.data_ptr(), col.data_ptr(), val.data_ptr(), x.data_ptr(),
+            vp.data_ptr() if op in _NEEDS_VP else None,
+            extra.data_ptr() if extra is not None else None,
+            sent.data_ptr() if sent is not None else None, y.data_ptr(),
+            got.data_ptr() if got is not None else None, n_rows,
+            x.shape[1], _OP_CODE[op], *_scalars(op, params),
+            torch.cuda.current_stream(x.device).cuda_stream)
+        _lib.check(lib, rc, "spmv_vec2")
+    return y if sent is None else (y, got)
+
+
 def spmv_vec_csr(rowptr, col, val, x, op, vp=None, extra=None, params=None,
                  row=None):
     """K3 on a CSR: ``rowptr`` int32[n_rows+1], ``col`` int32[nnz] (each
@@ -193,30 +226,20 @@ def spmv_vec_csr(rowptr, col, val, x, op, vp=None, extra=None, params=None,
     float32[n_rows, K] when ⊗ reads it, ``extra`` float32 when it reads
     one.  Returns float32[n_rows, out_width(op, K)].  ``row`` is used only
     by the plain version."""
-    _check(rowptr, col, val, x, op, vp, extra, params)
+    check(rowptr, col, val, x, op, vp, extra, params)
     if x.device.type == "cpu":
         return spmv_vec_csr_reference(rowptr, col, val, x, op, vp, extra,
                                       params, row)
     if x.device.type != "cuda":
         raise RuntimeError(f"spmv_vec has no kernel for {x.device}")
-    n_rows = rowptr.numel() - 1
-    y = torch.empty((n_rows, out_width(op, x.shape[1])),
-                    dtype=torch.float32, device=x.device)
-    if n_rows == 0:
-        return y
-    lib = _lib.load()
-    rc = lib.gm_spmv_vec2(
-        rowptr.data_ptr(), col.data_ptr(), val.data_ptr(), x.data_ptr(),
-        vp.data_ptr() if op in _NEEDS_VP else None,
-        extra.data_ptr() if extra is not None else None, y.data_ptr(),
-        n_rows, x.shape[1], _OP_CODE[op], *_scalars(op, params),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _lib.check(lib, rc, "spmv_vec2")
-    LAUNCHES[op] += 1
+    y = launch(rowptr, col, val, x, op, vp, extra, params)
+    if rowptr.numel() > 1:
+        LAUNCHES[op] += 1
     return y
 
 
-def _check_operand(graph_csr, x):
+def check_operand(graph_csr, x):
+    """Raise unless ``x`` holds one row per sender of ``graph_csr``."""
     if x.dim() != 2 or x.shape[0] != graph_csr.n_send:
         raise ValueError(f"x has shape {tuple(x.shape)}, the graph has "
                          f"{graph_csr.n_send} senders")
@@ -226,15 +249,15 @@ def spmv_vec(graph_csr, x, op, vp=None, extra=None, params=None):
     """K3 over one direction of a graph (a ``core.graph.CSR``): ``x`` has
     one row per sender, ``vp`` one per receiver; edge values are
     ``graph_csr.val_f32``."""
-    _check_operand(graph_csr, x)
+    check_operand(graph_csr, x)
     return spmv_vec_csr(graph_csr.rowptr, graph_csr.col, graph_csr.val_f32,
                         x, op, vp, extra, params, row=graph_csr.row)
 
 
 def spmv_vec_reference(graph_csr, x, op, vp=None, extra=None, params=None):
     """Plain version of :func:`spmv_vec`."""
-    _check_operand(graph_csr, x)
-    _check(graph_csr.rowptr, graph_csr.col, graph_csr.val_f32, x, op, vp,
+    check_operand(graph_csr, x)
+    check(graph_csr.rowptr, graph_csr.col, graph_csr.val_f32, x, op, vp,
            extra, params)
     return spmv_vec_csr_reference(graph_csr.rowptr, graph_csr.col,
                                   graph_csr.val_f32, x, op, vp, extra,

@@ -2,8 +2,9 @@
 
 Counterpart of ``graphmat_tpu/utils/generators.py``.  ``chain_edgelist``
 and ``random_edgelist`` are numpy and give the same edges as the JAX
-package for the same arguments.  ``rmat_edgelist`` runs on a given torch
-device with a given ``torch.Generator``: it follows the JAX package's
+package for the same arguments.  ``rmat_edgelist`` runs on a torch
+device, the card unless asked otherwise, with a given
+``torch.Generator``: it follows the JAX package's
 quadrant rule, but draws another random stream, so its graph differs
 from JAX's for the same seed.
 """
@@ -49,7 +50,7 @@ def random_edgelist(n: int, avg_degree: int, seed: int = 0,
 
 def rmat_edgelist(scale: int, edge_factor: int = 16,
                   a: float = 0.57, b: float = 0.19, c: float = 0.19,
-                  seed: int = 0, dedup: bool = True, device="cpu",
+                  seed: int = 0, dedup: bool = True, device="cuda",
                   generator: torch.Generator | None = None) -> EdgeList:
     """Graph500-style RMAT on ``device``: 2^scale vertices and
     edge_factor·2^scale drawn edges, self-edges dropped, duplicates
@@ -62,9 +63,15 @@ def rmat_edgelist(scale: int, edge_factor: int = 16,
     graphmat_tpu/utils/generators.py:113-126).  The random numbers come
     from ``generator``, or from a new one seeded with ``seed`` on
     ``device``.  The result holds int32 torch tensors on ``device``, with
-    unit weights.
+    unit weights.  ``device`` is the card by default; without one it
+    raises rather than draw on the CPU unasked.
     """
     device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "rmat_edgelist: no CUDA device is available for the default "
+            "device='cuda'; pass device=\"cpu\" to draw the graph on the "
+            "CPU")
     if generator is None:
         generator = torch.Generator(device=device)
         generator.manual_seed(seed)

@@ -26,7 +26,7 @@ import torch
 
 import graphmat_tpu_torch as gt
 from graphmat_tpu_torch.apps import pagerank as tpr
-from graphmat_tpu_torch.ops import compact, spmv2, spmv2u, spmv_vec2
+from graphmat_tpu_torch.ops import compact, spmv2, spmv2u, spmv_vec, spmv_vec2
 from graphmat_tpu_torch.utils.generators import rmat_edgelist
 
 pytestmark = pytest.mark.cuda
@@ -97,7 +97,7 @@ def test_aux_gather_kernel_matches_plain(cuda, dtype):
 
 @pytest.mark.parametrize("compacted", [False, True])
 def test_pagerank_on_cuda_matches_cpu(cuda, compacted):
-    e = rmat_edgelist(11, 16, seed=4)
+    e = rmat_edgelist(11, 16, seed=4, device="cpu")
     kw = dict(permute="degree", compact=compacted,
               compact_kw=dict(wr=256, hub=16, divert_min=40, bpsb=2,
                               w_div=1) if compacted else None)
@@ -196,7 +196,7 @@ def test_spmv_vec2_kernel_on_compacted_csr(cuda):
     kw = dict(permute="degree",
               compact_kw=dict(wr=256, hub=16, divert_min=40, bpsb=2,
                               w_div=1))
-    e = rmat_edgelist(11, 16, seed=4)
+    e = rmat_edgelist(11, 16, seed=4, device="cpu")
     e.val = torch.randint(1, 6, (e.nnz,), dtype=torch.int32,
                           generator=torch.Generator().manual_seed(1))
     on = gt.Graph(e, device=cuda, compact=True, **kw).csr("dst")
@@ -256,6 +256,94 @@ def test_lda_on_cuda_matches_cpu(cuda, k, permute):
     np.testing.assert_allclose(n_c, n_h, rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(gn_c, gn_h, rtol=1e-5)
     assert abs(ll_c - ll_h) <= 1e-5 * abs(ll_h)
+
+
+# ---------------------------- K3's sparse mode (K4 with K5's got count)
+
+
+@pytest.mark.parametrize("share", [1.0, 0.1, 0.01, 0.0])
+@pytest.mark.parametrize("k", [1, 20, 40])
+@pytest.mark.parametrize("op", K3_OPS)
+def test_spmv_vec_sparse_kernel_matches_plain(cuda, op, k, share):
+    """The sparse mode against its plain version: the count exactly, a
+    row without a sent edge exactly 0, sums within 1e-5 of the row's
+    Σ|terms| over sent edges (1e-6 for lda_init); with every sender sent,
+    the dense mode's bits."""
+    csr = _ratings_graph(cuda, build_in_edges=False).csr("dst")
+    x, vp, extra = _k3_inputs(op, k, csr.n_send, cuda)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(4)
+    sent = (torch.rand(csr.n_send, generator=gen, device=cuda)
+            < share).to(torch.uint8)
+    kw = dict(vp=vp, extra=extra, params=K3_PARAMS)
+    before = spmv_vec.LAUNCHES[op]
+    out, got = spmv_vec.spmv_vec_sparse(csr, x, op, sent, **kw)
+    torch.cuda.synchronize()
+    assert spmv_vec.LAUNCHES[op] == before + 1
+    ref, got_ref = spmv_vec.spmv_vec_sparse_reference(csr, x, op, sent, **kw)
+    assert torch.equal(got, got_ref)
+    assert bool((out[got == 0] == 0).all())
+    col, row = csr.col.long(), csr.row.long()
+    vpe = vp[row] if vp is not None else None
+    terms = spmv_vec2.VEC_PROCESS_OPS[op](x[col], csr.val_f32, vpe, extra,
+                                          K3_PARAMS).abs()
+    if op in ("sgd", "sgd_sqerr"):
+        # the K-term dot <x, vp_r> is summed in other orders too: a term
+        # moves by its sensitivity to the dot times K units of Σ|x vp|,
+        # beyond 1e-5 of the term where val - <x, vp_r> nearly cancels
+        dot = (x[col] * vpe).abs().sum(1, keepdim=True)
+        err = (csr.val_f32 - (x[col] * vpe).sum(1)).abs()[:, None]
+        terms += dot * (x[col].abs() if op == "sgd" else 2 * err)
+    terms = terms * sent[col][:, None]
+    rtol = 1e-6 if op == "lda_init" else 1e-5
+    bound = torch.zeros_like(out).index_add_(0, row, terms) * rtol
+    assert bool(((out - ref).abs() <= bound).all())
+    if share == 1.0:
+        assert torch.equal(out, spmv_vec2.spmv_vec(csr, x, op, **kw))
+
+
+@pytest.mark.parametrize("kind", ["sum", "min", "max"])
+def test_k5_through_k1_matches_plain(cuda, kind):
+    """K5's function is K1 with op x: min and max bitwise, the sum of the
+    sent bits exactly (integers)."""
+    from graphmat_tpu_torch.ops import spmv as k5
+    csr = _ratings_graph(cuda, build_in_edges=False).csr("dst")
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(6)
+    x = (torch.rand(csr.n_send, generator=gen, device=cuda) < 0.1).float()
+    if kind != "sum":
+        x = torch.randn(csr.n_send, generator=gen, device=cuda)
+    assert torch.equal(k5.spmv(csr, x, kind), k5.spmv_reference(csr, x, kind))
+
+
+@pytest.mark.parametrize("program", ["sgd", "rmse"])
+def test_active_only_vec_on_cuda_matches_cpu(cuda, program):
+    """An ACTIVE_ONLY K-wide program from a seeded frontier of 20% of the
+    vertices, three iterations, on the card's sparse mode against the
+    CPU: factors within 1e-6, squared errors within 1e-5 relative, the
+    frontiers equal."""
+    from graphmat_tpu_torch.apps import sgd as tsgd
+    base = tsgd.SGDProgram if program == "sgd" else tsgd.RMSEProgram
+    prog = type("ActiveOnly", (base,),
+                {"activity": gt.Activity.ACTIVE_ONLY})(k=20)
+    if program == "sgd":
+        prog.step = 1e-4
+    mask = np.random.default_rng(9).random(800) < 0.2
+    out = {}
+    for dev in (cuda, "cpu"):
+        g = _ratings_graph(dev)
+        tsgd.init_sgd_graph(g, 20)
+        g.set_active_mask(mask)
+        before = sum(spmv_vec.LAUNCHES.values())
+        gt.Engine(prog, g).run(iterations=3)
+        launched = sum(spmv_vec.LAUNCHES.values()) - before
+        assert launched == (0 if dev == "cpu" else
+                            3 * (2 if program == "sgd" else 1))
+        out[str(dev)] = (g.vp_numpy(), g.active.cpu().numpy())
+    (vc, ac), (vh, ah) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(vc["lv"], vh["lv"], rtol=0, atol=1e-6)
+    np.testing.assert_allclose(vc["sqerr"], vh["sqerr"], rtol=1e-5)
+    np.testing.assert_array_equal(ac, ah)
 
 
 # ------------------------------------------- the frontier apps' kernels
@@ -346,7 +434,7 @@ def _app_runs(device):
                                          delta_stepping as ds,
                                          incremental_pagerank as ipr,
                                          sssp, topological_sort as ts)
-    e = rmat_edgelist(11, 16, seed=8)
+    e = rmat_edgelist(11, 16, seed=8, device="cpu")
     w = np.random.default_rng(3).integers(1, 256, e.nnz)
     ew = gt.EdgeList(e.m, e.n, e.src, e.dst, torch.as_tensor(
         w, dtype=torch.float32))

@@ -21,6 +21,8 @@ def test_import_loads_no_jax():
             "import graphmat_tpu_torch.apps.delta_stepping\n"
             "import graphmat_tpu_torch.core.graph_ops\n"
             "import graphmat_tpu_torch.ops.spmv2\n"
+            "import graphmat_tpu_torch.ops.spmv_vec\n"
+            "import graphmat_tpu_torch.ops.spmv\n"
             "import graphmat_tpu_torch.io.transforms\n"
             "import graphmat_tpu_torch.utils.generators\n"
             "bad = sorted(m for m in sys.modules\n"

@@ -48,8 +48,16 @@ def test_numpy_generators_match_jax():
           jgen.random_edgelist(300, 6, seed=4, weight_range=5))
 
 
+def test_rmat_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tgen.rmat_edgelist(6, 4, seed=1)
+    assert tgen.rmat_edgelist(6, 4, seed=1, device="cpu").src.device.type \
+        == "cpu"
+
+
 def test_rmat_no_selfedges_no_duplicates_deterministic():
-    e = tgen.rmat_edgelist(10, 8, seed=11)
+    e = tgen.rmat_edgelist(10, 8, seed=11, device="cpu")
     assert isinstance(e.src, torch.Tensor) and e.src.dtype == torch.int32
     n = 1 << 10
     assert (e.m, e.n) == (n, n)
@@ -58,16 +66,17 @@ def test_rmat_no_selfedges_no_duplicates_deterministic():
     key = e.src.long() * (n + 1) + e.dst.long()
     assert torch.unique(key).numel() == e.nnz
     assert int(e.src.min()) >= 1 and int(e.dst.max()) <= n
-    again = tgen.rmat_edgelist(10, 8, seed=11)
+    again = tgen.rmat_edgelist(10, 8, seed=11, device="cpu")
     assert torch.equal(e.src, again.src) and torch.equal(e.dst, again.dst)
-    other = tgen.rmat_edgelist(10, 8, seed=12)
+    other = tgen.rmat_edgelist(10, 8, seed=12, device="cpu")
     assert e.nnz != other.nnz or not torch.equal(e.dst, other.dst)
 
 
 def test_rmat_quadrant_skew():
     """a=0.57 puts most edges in the low-id quadrant at every level: the
     top bit of both endpoints is clear for about a fraction 0.57."""
-    e = tgen.rmat_edgelist(12, 16, seed=2, dedup=False)
+    e = tgen.rmat_edgelist(12, 16, seed=2, dedup=False,
+                             device="cpu")
     half = 1 << 11
     both_low = ((e.src <= half) & (e.dst <= half)).double().mean()
     assert abs(float(both_low) - 0.57) < 0.02

@@ -30,7 +30,7 @@ SMALL_COMPACT = dict(wr=256, hub=16, divert_min=40, bpsb=2, w_div=1)
 
 def rmat_numpy(scale=10):
     """A seeded RMAT, built once as a numpy EdgeList for both packages."""
-    e = rmat_edgelist(scale, 16, seed=5)
+    e = rmat_edgelist(scale, 16, seed=5, device="cpu")
     return gt.EdgeList(e.m, e.n, e.src.numpy(), e.dst.numpy(),
                        e.val.numpy())
 
