@@ -29,9 +29,9 @@ raises and the script exits non-zero:
    over that run; the result against a float64 PageRank computed on the
    host with ``scipy.sparse`` for the same number of iterations;
 6. timings on that graph, from CUDA events: a dense PageRank step on the
-   kernel path, on the plain path and with compaction off; each kernel
-   alone at the slice's shapes beside its plain version; GTEPS and peak
-   device memory;
+   kernel path (and its torch.profiler breakdown), on the plain path and
+   with compaction off; each kernel alone at the slice's shapes beside
+   its plain version; GTEPS and peak device memory;
 7. K3 (the K-wide three-operand SpMV) against its plain version on a
    seeded bipartite graph of 1M ratings, for every op at K = 1, 20 and
    40; rows without edges must be exactly 0;
@@ -52,7 +52,11 @@ raises and the script exits non-zero:
     sum with got) and packed-key ⊗, and the push kernel (sum with got,
     min, max, every ⊗; dense and frontiers of 0.01%, 1% and 50% of
     senders), against their plain versions on phase 3's graph; K1 against
-    the push, bitwise;
+    the push, bitwise; then, on a hub graph (RMAT-16 plus a sender and a
+    receiver of 2^20 edges, rows at each lane group's length limit and
+    one past it, C and C + 1 edges, and empty rows), both kernels in
+    every reduce x ⊗ x mode against their plain versions, K1's dense sum
+    bitwise over two launches, and K1 against the push at a BFS level;
 13. the BFS, SSSP, IncPR, DeltaStepping and TopoSort CLIs against the
     reference binary's outputs in ``tests/golden``, under both routes;
 14. the slice at full size, both routes, counted per run: on phase 5's
@@ -66,7 +70,10 @@ raises and the script exits non-zero:
     over the input edges within the reached component), one dense and one
     sparse BFS level on K1 beside the push, the SSSP dense sweep of
     bench.py:318-334 (GTEPS), the push kernel alone beside its plain
-    version and cuSPARSE, peak device memory;
+    version and cuSPARSE, where the hubs sit and what they cost each
+    kernel (K1 without the first 32 or 1024 rows, the push without the
+    first 32 senders and without its atomics, beside cuSPARSE), peak
+    device memory;
 16. K3's sparse mode against its plain version on phase 7's graph, every
     op at K = 1, 20, 40 with 100%, 10%, 1% and 0.01% of senders sent (the
     got count exact, at 100% bitwise the dense mode), and K5's function
@@ -407,7 +414,8 @@ def phase_timings(e, g, card):
     if not torch.equal(k2_out, aux_gather_reference(x, csr.src_of_pos)):
         raise AssertionError("phase 6: K2 differs at the slice's shape")
     dense_args = (csr.rowptr, csr.col_ext, csr.x_ext, "sum", "x")
-    k1_ms = event_ms(lambda: spmv_csr(*dense_args), 20)
+    k1_plan = spmv2u.plan_for(csr)
+    k1_ms = event_ms(lambda: spmv_csr(*dense_args, plan=k1_plan), 20)
     k1_plain_ms = event_ms(
         lambda: spmv_csr_reference(*dense_args, row=csr.row), 5)
     k1_err = check_spmv_case(
@@ -427,14 +435,17 @@ def phase_timings(e, g, card):
     sent = (torch.rand(csr_in.x_ext.numel(), generator=gen,
                        device=g.device) < 0.5).to(torch.uint8)
     got_args = (csr_in.rowptr, csr_in.col_ext, csr_in.x_ext, "sum", "x")
-    k1_got_ms = event_ms(
-        lambda: spmv_csr(*got_args, sent=sent, want_got=True), 20)
+    got_plan = spmv2u.plan_for(csr_in)
+    k1_got_ms = event_ms(lambda: spmv_csr(
+        *got_args, sent=sent, want_got=True, plan=got_plan), 20)
     k1_got_plain_ms = event_ms(
         lambda: spmv_csr_reference(*got_args, sent=sent, want_got=True,
                                    row=csr_in.row), 5)
 
     step_ms = min(step["kernel"])
+    profile = profile_run(eng.step_once)
     out = {
+        "step_profile": profile,
         "card": card,
         "step_ms": step,
         "gteps_kernel": g.nnz / (step_ms * 1e-3) / 1e9,
@@ -1147,6 +1158,163 @@ def phase_new_kernels(device, scale=16, edge_factor=16, seed=7):
     return k1_err, push_err
 
 
+HUB_EDGES = 1 << 20   # the hub sender's out- and hub receiver's in-degree
+
+
+def hub_edgelist(device, scale=16, edge_factor=16, seed=7):
+    """A graph where the kernels' split paths really run: RMAT-``scale``
+    (ids below 2^scale), one sender with HUB_EDGES out-edges and one
+    receiver with HUB_EDGES in-edges, receivers and senders of exactly 16,
+    17, 32, 33, 64, 65, C and C + 1 edges (each width's limit and one
+    past it; C the kernels' chunk), and empty rows above them.  Returns
+    (EdgeList, hub sender, hub receiver), the hubs 0-based."""
+    import torch
+    from graphmat_tpu_torch import EdgeList
+    from graphmat_tpu_torch.ops.spmv2u import CHUNK_EDGES
+    from graphmat_tpu_torch.utils.generators import rmat_edgelist
+    e = rmat_edgelist(scale, edge_factor, seed=seed, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    base = HUB_EDGES
+    hub_s, hub_r = base + 1, base + 2
+    span = torch.arange(HUB_EDGES, device=device)
+    src = [e.src.long() - 1, torch.full_like(span, hub_s), span]
+    dst = [e.dst.long() - 1, span, torch.full_like(span, hub_r)]
+    for i, ln in enumerate((16, 17, 32, 33, 64, 65, CHUNK_EDGES,
+                            CHUNK_EDGES + 1)):
+        peers = torch.randperm(HUB_EDGES, generator=gen, device=device)[:ln]
+        src += [peers, torch.full_like(peers, base + 16 + i)]
+        dst += [torch.full_like(peers, base + 32 + i), peers]
+    n = base + 4096
+    src, dst = torch.cat(src) + 1, torch.cat(dst) + 1
+    return (EdgeList(n, n, src.to(torch.int32), dst.to(torch.int32),
+                     torch.ones(src.numel(), device=device)), hub_s, hub_r)
+
+
+def phase_hub_kernels(device, scale=16, seed=7):
+    """Phase 12, on the hub graph: K1 and the push against their plain
+    versions in every reduce x op x mode (K1 with and without recv_final,
+    the hub receiver's row live in one mask and final in the other); K1's
+    dense sum bitwise the same over two launches; K1 and the push equal in
+    min and max at BFS level 1 from the hub sender."""
+    import torch
+    from graphmat_tpu_torch import Graph
+    from graphmat_tpu_torch.ops.spmv2 import spmv_push, spmv_push_reference
+    from graphmat_tpu_torch.ops.spmv2u import (PROCESS_OPS, spmv,
+                                               spmv_reference)
+    e, hub_s, hub_r = hub_edgelist(device, scale, seed=seed)
+    g = Graph(e, device=device, compact=False)
+    rc, sc = g.csr("dst"), g.sender_csr("dst")
+    n = g.n_pad
+    bits = max(int(np.ceil(np.log2(n))), 1)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def rand(size):
+        return torch.rand(size, generator=gen, device=device)
+    x = torch.randn(n, generator=gen, device=device)
+    xk = packed_keys(n, bits, gen, device)
+    # a sum over keys: half finite keys, half signed values that the op
+    # passes through, so the hub row's sum does not grow one-signed
+    xk_sum = torch.where(rand(n) < 0.5, xk.nan_to_num(posinf=0.0), x)
+    vals = {}
+    for name, c in (("recv", rc), ("send", sc)):
+        vals[name] = (torch.randn(c.nnz, generator=gen, device=device),
+                      torch.randint(1, 8, (c.nnz,), generator=gen,
+                                    device=device).float())
+    f1 = (rand(n) < 0.01).to(torch.uint8)
+    f1[hub_s] = 1
+    frontiers = {"dense": None, "1%+hub": f1,
+                 "50%": (rand(n) < 0.5).to(torch.uint8)}
+    finals = {}
+    for live in (True, False):
+        rf = (rand(n) < 0.5).to(torch.uint8)
+        rf[hub_r] = 0 if live else 1
+        finals["hub row " + ("live" if live else "final")] = rf
+
+    def operand(kind, op, name):
+        val, w = vals[name]
+        if op != "key_add_val":
+            return x, val
+        return (xk_sum if kind == "sum" else xk), w
+
+    err = {"k1": 0.0, "push": 0.0}
+    cases = {"k1": 0, "push": 0}
+    for kind in ("sum", "min", "max"):
+        for op in PROCESS_OPS:
+            for fname, sent in frontiers.items():
+                got = kind == "sum" and sent is not None
+                xx, vv = operand(kind, op, "recv")
+                masks = {"": None} if sent is None else {"": None, **finals}
+                for mname, rf in masks.items():
+                    kw = dict(val=vv, sent=sent, want_got=got,
+                              recv_final=rf, bits=bits)
+                    out = spmv(rc, xx, kind, op, **kw)
+                    sync(device)
+                    ref = spmv_reference(rc, xx, kind, op, **kw)
+                    what = f"hub graph K1 {kind} {op} {fname} {mname}"
+                    if got:
+                        (out, cnt), (ref, cnt_ref) = out, ref
+                        if not torch.equal(cnt, cnt_ref):
+                            raise AssertionError(f"{what}: counts differ")
+                    bound = None
+                    if kind == "sum":
+                        terms = PROCESS_OPS[op](xx[rc.col.long()], vv, bits)
+                        bound = sum_bound(rc.row.long(), rc.col.long(),
+                                          terms, n, sent)
+                    err["k1"] = max(err["k1"], compare_out(
+                        what, out, ref, kind, bound))
+                    cases["k1"] += 1
+                xx, vv = operand(kind, op, "send")
+                kw = dict(val=vv, sent=sent, want_got=got, bits=bits)
+                out = spmv_push(sc, xx, kind, op, **kw)
+                sync(device)
+                ref = spmv_push_reference(sc, xx, kind, op, **kw)
+                what = f"hub graph push {kind} {op} {fname}"
+                if got:
+                    (out, cnt), (ref, cnt_ref) = out, ref
+                    if not torch.equal(cnt, cnt_ref):
+                        raise AssertionError(f"{what}: counts differ")
+                bound = None
+                if kind == "sum":
+                    terms = PROCESS_OPS[op](xx[sc.row.long()], vv, bits)
+                    bound = sum_bound(sc.col.long(), sc.row.long(), terms, n,
+                                      sent)
+                err["push"] = max(err["push"], compare_out(
+                    what, out, ref, kind, bound))
+                cases["push"] += 1
+    val = vals["recv"][0]
+    a = spmv(rc, x, "sum", "x_mul_val", val=val)
+    b = spmv(rc, x, "sum", "x_mul_val", val=val)
+    sync(device)
+    if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+        raise AssertionError("hub graph: K1's dense sum differs between "
+                             "two launches")
+    # BFS level 1 from the hub sender: its out-neighbours send their ids
+    depth1 = torch.zeros(n, dtype=torch.bool, device=device)
+    depth1[sc.col[sc.rowptr[hub_s]:sc.rowptr[hub_s + 1]].long()] = True
+    sent = depth1.to(torch.uint8)
+    rf = (depth1 | ~g.valid_vertex).to(torch.uint8)
+    rf[hub_s] = 1
+    ids = torch.arange(1, n + 1, device=device).float()
+    live = rf == 0
+    for kind, fill in (("min", float("inf")), ("max", float("-inf"))):
+        xs = ids.masked_fill(sent == 0, fill)
+        a = spmv(rc, xs, kind, "x", sent=sent, recv_final=rf)
+        b = spmv_push(sc, xs, kind, "x", sent=sent)
+        sync(device)
+        compare_out(f"hub graph BFS level 1, K1 against the push ({kind})",
+                    a[live], b[live], kind)
+    log(f"phase 12: hub graph n={g.n} nnz={rc.nnz} (max in-degree "
+        f"{int(rc.rowptr.diff().max())}, max out-degree "
+        f"{int(sc.rowptr.diff().max())}): K1 agrees in {cases['k1']} cases "
+        f"(max |err| {err['k1']:.3e}), the push in {cases['push']} (max "
+        f"|err| {err['push']:.3e}); min/max and counts bitwise; K1's dense "
+        f"sum bitwise over two launches; K1 equals the push at BFS level 1 "
+        f"({int(sent.sum())} senders)")
+    return err["k1"], err["push"]
+
+
 def run_cli(module, args):
     import importlib
     m = importlib.import_module(module)
@@ -1585,6 +1753,55 @@ def profile_run(fn, top=6):
                     for ms, c, k in rows[:top]]}
 
 
+def hub_diagnosis(g, x, reps=20):
+    """Where the hubs sit and what they cost each kernel: the longest
+    receiver row and the out-degree of senders 0-31 (one push tile); K1's
+    dense sum on rows k and up (``rowptr[k:]`` rebased, ``col`` from its
+    first edge: views, no copies) for k in 0, 32, 1024; the push's dense
+    sum with and without senders 0-31, and its walk without atomics;
+    cuSPARSE on the whole CSR; and how many rows and senders fall in each
+    length class of K1's lane groups."""
+    import torch
+    from graphmat_tpu_torch.core.graph import CSR
+    from graphmat_tpu_torch.ops.spmv2 import spmv_push
+    from graphmat_tpu_torch.ops.spmv2u import spmv
+    rc, sc = g.csr("dst"), g.sender_csr("dst")
+    in_len, out_len = rc.rowptr.diff(), sc.rowptr.diff()
+    edges = torch.tensor([0, 16, 32, 64, 1024, 1 << 31], device=x.device)
+
+    def classes(lens):
+        return torch.bincount(torch.bucketize(lens.long(), edges[1:]),
+                              minlength=5).tolist()
+
+    def tail(c, k):
+        e0 = int(c.rowptr[k])
+        return CSR(c.rowptr[k:] - e0, c.col[e0:], c.row[e0:] - k,
+                   c.val[e0:], c.n_send)
+    out = {"max_in_degree": int(in_len.max()),
+           "max_out_degree": int(out_len.max()),
+           "tile0_out_edges": int(out_len[:32].sum()),
+           "rows_by_length_le_16_32_64_1024_more": classes(in_len),
+           "senders_by_length_le_16_32_64_1024_more": classes(out_len),
+           "k1_dense_sum_ms_from_row": {}}
+    for k in (0, 32, 1024):
+        view = tail(rc, k)
+        spmv(view, x, "sum", "x")   # plans, if any, are built here
+        out["k1_dense_sum_ms_from_row"][k] = event_ms(
+            lambda: spmv(view, x, "sum", "x"), reps)
+    push_tail = tail(sc, 32)
+    out["push_dense_sum_ms"] = event_ms(
+        lambda: spmv_push(sc, x, "sum", "x"), reps)
+    out["push_dense_sum_ms_without_tile0"] = event_ms(
+        lambda: spmv_push(push_tail, x[32:], "sum", "x"), reps)
+    # the same walk without atomics: max of -inf reads y at every edge
+    # and never finds it can improve it
+    no_gain = torch.full_like(x, float("-inf"))
+    out["push_dense_max_no_atomics_ms"] = event_ms(
+        lambda: spmv_push(sc, no_gain, "max", "x"), reps)
+    out["cusparse_ms"] = cusparse_ms(rc.rowptr, rc.col, x, reps)
+    return out
+
+
 def phase_traversal_timings(card, report, gw, scale=22, edge_factor=16,
                             seed=1):
     """Phase 15: BFS per source on each route, one dense and one sparse
@@ -1677,6 +1894,7 @@ def phase_traversal_timings(card, report, gw, scale=22, edge_factor=16,
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
     x = torch.rand(g.n_pad, generator=gen, device="cuda")
+    out["hub_diagnosis"] = hub_diagnosis(g, x)
     push_dense = lambda: spmv_push(sc, x, "sum", "x")
     push_ms = event_ms(push_dense, 20)
     push_plain_ms = event_ms(lambda: spmv_push_reference(sc, x, "sum", "x"),
@@ -2115,7 +2333,9 @@ def main(argv=None):
 
     if want(12):
         k1_err_new, push_err = phase_new_kernels("cuda")
-        k1_err = max(k1_err, k1_err_new)
+        k1_err_hub, push_err_hub = phase_hub_kernels("cuda")
+        k1_err = max(k1_err, k1_err_new, k1_err_hub)
+        push_err = max(push_err, push_err_hub)
     if want(13):
         phase_golden_traversal()
     if want(14):

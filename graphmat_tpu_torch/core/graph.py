@@ -21,8 +21,8 @@ A graph lives on the card unless the caller asks for the CPU
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -57,6 +57,7 @@ class CSR:
     sent_ext: Optional[torch.Tensor] = None
     _val_f32: Optional[torch.Tensor] = None
     _got_static: Optional[torch.Tensor] = None
+    _plans: Dict[str, Any] = field(default_factory=dict)
 
     @property
     def n_rows(self) -> int:
@@ -72,6 +73,14 @@ class CSR:
         if self._val_f32 is None:
             self._val_f32 = self.val.to(torch.float32).contiguous()
         return self._val_f32
+
+    def plan(self, name: str, build: Callable[[torch.Tensor], Any]) -> Any:
+        """A kernel's work split of this CSR, ``build(rowptr)``, made on
+        first use and kept (it reads the structure only, which never
+        changes)."""
+        if name not in self._plans:
+            self._plans[name] = build(self.rowptr)
+        return self._plans[name]
 
     @property
     def got_static(self) -> torch.Tensor:

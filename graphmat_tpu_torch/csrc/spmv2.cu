@@ -24,13 +24,38 @@
 //               from senders that sent (the JAX kernel rides that bit in
 //               x's low mantissa bit instead).
 //
-// The design: one warp per tile of 32 senders.  The warp reads the tile's
-// 32 sent bytes in one coalesced load and takes __ballot_sync of them: an
-// all-inactive tile costs that one load (the Hopper form of the chunk
-// skip).  Each active lane also loads its sender's rowptr pair and x once;
-// then, for each set bit, the warp broadcasts that sender's range and x by
-// shuffle and walks its out-edges with its 32 lanes, coalesced over col and
-// val, and (+)-combines into y[r] with atomics:
+// What bounds it on an H100: per pushed edge it streams col (4 B) and val
+// (4 B, when (x) reads it) and makes one atomic to y (and one to got) in
+// L2; per sender it reads sent (1 B), and per active sender rowptr and x.
+// At RMAT-22 y is 16 MB and sits in the 50 MB L2, so a dense push is
+// bound by L2 atomic throughput, a sparse level by its frontier's edges.
+//
+// The design: work goes to warps by edges, not by senders.  A chunk is at
+// most C = 1024 consecutive edges of one tile of 32 consecutive senders:
+// chunk k of tile t covers edges [lo + k*C, lo + (k+1)*C) of the tile's
+// range [lo, hi).  Warp t takes chunk 0 of tile t; the plan
+// (ops/spmv2.py: push_plan, built once per index) lists the further
+// chunks of the tiles that hold more than C edges, one warp each after
+// the tiles'.  So no warp handles more than C edges or 32 senders
+// whatever the degrees or the permutation: a hub sender's out-edges
+// spread over ceil(degree / C) + 1 warps at most, where before one warp
+// walked the 32 largest senders' edges (tile 0 of a degree-permuted
+// graph) alone.  C is 32 steps of the warp's 32 lanes: enough edges to
+// pay for the chunk's fixed cost (its sent, rowptr and x loads and a
+// scan), few enough that an RMAT-22 dense push gives some 170,000 warps,
+// 20 for each warp slot of the 132 SMs.  A sparse level costs a warp per
+// tile that reads 32 sent bytes, as the one-warp-per-tile kernel did.
+//
+// In a warp, lane l holds sender 32t + l: its sent byte (one coalesced
+// load; __ballot_sync of it skips a chunk with no active sender, the
+// Hopper form of the chunk skip), then, if active, its edge range clipped
+// to the chunk, its length and x.  An inclusive shuffle scan of the
+// lengths gives the chunk's active edges as one range [0, T); the lanes
+// take 32 of them at a time, each finding its sender by a 5-step binary
+// search over the scan (shuffles, no memory) and its edge as that
+// sender's start plus the offset.  So every lane carries an edge on every
+// step whatever the degrees, and consecutive lanes read consecutive col.
+// Each edge (+)-combines into y[r] with an atomic:
 //   sum: atomicAdd on float (and on int for got);
 //   min/max: the ordered-integer trick.  A non-negative float orders as
 //     its int32 bits and a negative one inversely as its uint32 bits, so
@@ -46,14 +71,6 @@
 // exactly.  A sum by atomics has no fixed order: float sums differ from
 // run to run in the last bits (ROADMAP H1); integer payloads below 2^24
 // and the got counts are exact in any order.
-//
-// What bounds it on an H100: per pushed edge it streams col (4 B) and val
-// (4 B, when (x) reads it) and makes one atomic to y (and one to got) in
-// L2; per sender it reads sent (1 B), and per active sender rowptr and x.
-// At RMAT-22 y is 16 MB and sits in the 50 MB L2, so a dense push is
-// bound by L2 atomic throughput, a sparse level by its frontier's edges.
-// A hub sender runs on one warp: load balance (splitting a hub's
-// out-edges across warps) is later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -65,6 +82,7 @@ enum Process { kX = 0, kXMulVal = 1, kXAddVal = 2, kKeyAddVal = 3 };
 enum Mode { kDense = 0, kSparse = 1, kSparseGot = 2 };
 
 constexpr int kWarpsPerBlock = 8;
+constexpr int kChunkEdges = 1024;   // C; ops/spmv2.py: CHUNK_EDGES
 constexpr int kKeyBias = 0x20000000;
 constexpr int kKeySpan = 1 << 28;
 constexpr unsigned kFull = 0xffffffffu;
@@ -104,61 +122,83 @@ __device__ __forceinline__ void combine_atomic(float* y, float u) {
   }
 }
 
-template <int R, int P, int M>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-push_kernel(const int* __restrict__ rowptr, const int* __restrict__ col,
-            const float* __restrict__ val, const float* __restrict__ x,
-            const uint8_t* __restrict__ sent, float* y, int* got,
-            int n_send, int bits) {
-  const int lane = threadIdx.x & 31;
-  const int nwarps = (gridDim.x * blockDim.x) >> 5;
-  const int n_tiles = (n_send + 31) >> 5;
-  for (int t = (blockIdx.x * blockDim.x + threadIdx.x) >> 5; t < n_tiles;
-       t += nwarps) {
-    const int s = (t << 5) + lane;
-    bool act = s < n_send;
-    if (M != kDense && act) act = __ldg(sent + s) != 0;
-    unsigned todo = __ballot_sync(kFull, act);
-    if (todo == 0) continue;
-    int my_start = 0, my_end = 0;
-    float my_x = 0.0f;
-    if (act) {
-      my_start = __ldg(rowptr + s);
-      my_end = __ldg(rowptr + s + 1);
-      my_x = __ldg(x + s);
-    }
-    while (todo) {
-      const int b = __ffs(todo) - 1;
-      todo &= todo - 1;
-      const int start = __shfl_sync(kFull, my_start, b);
-      const int end = __shfl_sync(kFull, my_end, b);
-      const float xs = __shfl_sync(kFull, my_x, b);
-      for (int e = start + lane; e < end; e += 32) {
-        const int r = __ldg(col + e);
-        const float v = (P == kX) ? 0.0f : __ldg(val + e);
-        combine_atomic<R>(y + r, process<P>(xs, v, bits));
-        if (M == kSparseGot) atomicAdd(got + r, 1);
-      }
-    }
-  }
-}
-
 struct Args {
   const int* rowptr;
   const int* col;
   const float* val;
   const float* x;
   const uint8_t* sent;
+  const int* extra_tile;
+  const int* extra_k;
   float* y;
   int* got;
+  int n_tiles;
+  int n_extra;
   int n_send;
   int bits;
 };
 
 template <int R, int P, int M>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+push_kernel(const Args a) {
+  const int lane = threadIdx.x & 31;
+  const int w = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (w >= a.n_tiles + a.n_extra) return;   // the whole warp
+  int t = w, k = 0;
+  if (w >= a.n_tiles) {
+    t = __ldg(a.extra_tile + (w - a.n_tiles));
+    k = __ldg(a.extra_k + (w - a.n_tiles));
+  }
+  const int s = (t << 5) + lane;
+  bool act = s < a.n_send;
+  if (M != kDense && act) act = __ldg(a.sent + s) != 0;
+  if (__ballot_sync(kFull, act) == 0) return;
+  int lo = 0, hi = 0;
+  if (s < a.n_send) {
+    lo = __ldg(a.rowptr + s);
+    hi = __ldg(a.rowptr + s + 1);
+  }
+  // the chunk's edges; the wrapper keeps e_hi below 2^31
+  const int e_lo = __shfl_sync(kFull, lo, 0) + k * kChunkEdges;
+  const int e_hi = e_lo + kChunkEdges;
+  int start = 0, len = 0;
+  float xs = 0.0f;
+  if (act) {
+    start = max(lo, e_lo);
+    len = max(min(hi, e_hi) - start, 0);
+    if (len > 0) xs = __ldg(a.x + s);
+  }
+  int incl = len;   // inclusive scan of the lanes' edge counts
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int v = __shfl_up_sync(kFull, incl, off);
+    if (lane >= off) incl += v;
+  }
+  const int total = __shfl_sync(kFull, incl, 31);
+  // edge t of the chunk's active range, held by lane j, is first_j + t
+  const int first = start - (incl - len);
+  for (int base = 0; base < total; base += 32) {
+    const int t = base + lane;
+    // j = the number of lanes whose scan is <= t: the lane holding edge t
+    int j = 0;
+#pragma unroll
+    for (int step = 16; step > 0; step >>= 1) {
+      if (__shfl_sync(kFull, incl, j + step - 1) <= t) j += step;
+    }
+    const int e = __shfl_sync(kFull, first, j) + t;
+    const float xj = __shfl_sync(kFull, xs, j);
+    if (t < total) {
+      const int r = __ldg(a.col + e);
+      const float v = (P == kX) ? 0.0f : __ldg(a.val + e);
+      combine_atomic<R>(a.y + r, process<P>(xj, v, a.bits));
+      if (M == kSparseGot) atomicAdd(a.got + r, 1);
+    }
+  }
+}
+
+template <int R, int P, int M>
 void launch(dim3 grid, cudaStream_t st, const Args& a) {
-  push_kernel<R, P, M><<<grid, kWarpsPerBlock * 32, 0, st>>>(
-      a.rowptr, a.col, a.val, a.x, a.sent, a.y, a.got, a.n_send, a.bits);
+  push_kernel<R, P, M><<<grid, kWarpsPerBlock * 32, 0, st>>>(a);
 }
 
 template <int R, int P>
@@ -191,25 +231,30 @@ bool launch_process(int proc, int mode, dim3 grid, cudaStream_t st,
 }  // namespace
 
 // One launch of the push SpMV.  rowptr int32[n_send + 1] over senders, col
-// int32[nnz] the receiver of each edge, y (and got) already filled with
-// the identity (and 0).  reduce: 0 sum, 1 min, 2 max; process: 0 x,
-// 1 x*val, 2 x+val, 3 key+val (shift `bits`); mode: 0 dense, 1 sparse,
-// 2 sparse with got (sum only).  Pointers the mode or process does not
-// read may be null.  Returns cudaGetLastError().
+// int32[nnz] the receiver of each edge (nnz < 2^31 - C), y (and got)
+// already filled with the identity (and 0); extra_tile and extra_k
+// int32[n_extra], the plan's further chunks (chunk k of tile t: edges
+// [rowptr[32t] + k*C, + C) of senders [32t, 32t + 32)).  reduce: 0 sum, 1
+// min, 2 max; process: 0 x, 1 x*val, 2 x+val, 3 key+val (shift `bits`);
+// mode: 0 dense, 1 sparse, 2 sparse with got (sum only).  Pointers the
+// mode or process does not read may be null.  Returns cudaGetLastError().
 extern "C" int gm_spmv_push(const void* rowptr, const void* col,
                             const void* val, const void* x, const void* sent,
-                            void* y, void* got, int n_send, int reduce,
-                            int process, int mode, int bits, void* stream) {
-  if (n_send <= 0 || bits < 0 || bits > 31)
+                            void* y, void* got, const void* extra_tile,
+                            const void* extra_k, int n_extra, int n_send,
+                            int reduce, int process, int mode, int bits,
+                            void* stream) {
+  if (n_send <= 0 || n_extra < 0 || bits < 0 || bits > 31)
     return static_cast<int>(cudaErrorInvalidValue);
-  // a warp per 32-sender tile up to 2^25 senders; beyond, warps stride
   const int n_tiles = (n_send + 31) / 32;
-  int blocks = (n_tiles + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (blocks > (1 << 20)) blocks = 1 << 20;
+  const int n_warps = n_tiles + n_extra;
+  const int blocks = (n_warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
   const Args a{static_cast<const int*>(rowptr), static_cast<const int*>(col),
                static_cast<const float*>(val), static_cast<const float*>(x),
-               static_cast<const uint8_t*>(sent), static_cast<float*>(y),
-               static_cast<int*>(got), n_send, bits};
+               static_cast<const uint8_t*>(sent),
+               static_cast<const int*>(extra_tile),
+               static_cast<const int*>(extra_k), static_cast<float*>(y),
+               static_cast<int*>(got), n_tiles, n_extra, n_send, bits};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(blocks);
   bool ok = false;

@@ -20,12 +20,18 @@ A sum is combined by atomics, so its order, and its last bits, change from
 run to run (ROADMAP H1); min, max, integer payloads below 2^24 and the
 counts are exact.
 
+Work goes to warps by chunks (:func:`push_plan`): at most
+:data:`CHUNK_EDGES` consecutive edges of a tile of 32 senders, so no warp
+takes more than that many edges, however large a sender's out-degree.
+
 :func:`spmv_push_csr` launches ``graphmat_tpu_torch/csrc/spmv2.cu`` on CUDA
 tensors and runs :func:`spmv_push_csr_reference` on CPU tensors;
 :func:`spmv_push` is the entry on a graph's sender-major index.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -35,10 +41,49 @@ from .spmv2u import (IDENTITY, PROCESS_OPS, _PROCESS_CODE, _REDUCE_CODE,
 from .spmv2u import _check as _check_k1
 
 __all__ = ["spmv_push", "spmv_push_reference", "spmv_push_csr",
-           "spmv_push_csr_reference", "LAUNCHES"]
+           "spmv_push_csr_reference", "push_plan", "plan_for", "PushPlan",
+           "CHUNK_EDGES", "TILE", "LAUNCHES"]
 
-# launches of the push kernel by mode; only spmv_push_csr adds to them
+# launches of the push kernel by mode; only spmv_push_csr adds to them, one
+# per call
 LAUNCHES = {"dense": 0, "sparse": 0, "sparse_got": 0}
+
+CHUNK_EDGES = 1024   # C, the most edges a warp takes (csrc/spmv2.cu)
+TILE = 32            # senders a warp reads the sent bytes of, one per lane
+
+
+class PushPlan(NamedTuple):
+    """The push kernel's chunks past the first of each tile.  Chunk ``k``
+    of tile ``t`` covers the edges of senders ``[TILE * t, TILE * (t +
+    1))`` that lie in ``[lo + k * CHUNK_EDGES, lo + (k + 1) *
+    CHUNK_EDGES)``, ``lo`` the tile's first edge.  Warp ``t`` takes chunk 0
+    of tile ``t``; warp ``n_tiles + i`` chunk ``extra_k[i]`` of tile
+    ``extra_tile[i]``.  Every edge lies in one chunk."""
+
+    extra_tile: torch.Tensor   # int32[n_extra]
+    extra_k: torch.Tensor      # int32[n_extra], each >= 1
+
+
+def push_plan(rowptr: torch.Tensor) -> PushPlan:
+    """The chunks of a sender-major CSR (``rowptr`` int32[n_send + 1]),
+    built with torch ops on its device (one host read, for the count)."""
+    dev = rowptr.device
+    n_send = rowptr.numel() - 1
+    rp = rowptr.long()
+    t = torch.arange((n_send + TILE - 1) // TILE, device=dev)
+    lo = rp[t * TILE]
+    hi = rp[torch.clamp(t * TILE + TILE, max=n_send)]
+    extra = ((hi - lo + CHUNK_EDGES - 1) // CHUNK_EDGES - 1).clamp(min=0)
+    tile = torch.repeat_interleave(t, extra)
+    start = torch.cumsum(extra, 0) - extra
+    k = 1 + torch.arange(tile.numel(), device=dev) - start[tile]
+    return PushPlan(tile.to(torch.int32), k.to(torch.int32))
+
+
+def plan_for(sender_csr) -> PushPlan:
+    """The push plan of a graph's sender-major index, built on first use
+    and kept on it."""
+    return sender_csr.plan("push", push_plan)
 
 
 def _check(rowptr, col, x, n_recv, reduce_kind, process_op, val, sent,
@@ -81,13 +126,15 @@ def spmv_push_csr_reference(rowptr, col, x, n_recv, reduce_kind, process_op,
 
 
 def spmv_push_csr(rowptr, col, x, n_recv, reduce_kind, process_op, val=None,
-                  sent=None, want_got=False, src=None, bits=0):
+                  sent=None, want_got=False, src=None, bits=0, plan=None):
     """The push kernel on a sender-major CSR: ``rowptr`` int32[n_send+1],
     ``col`` int32[nnz] (each < ``n_recv``; the Graph guarantees it), ``x``
     float32[n_send], ``val`` float32[nnz] when ⊗ reads it, ``sent`` uint8
     like ``x``, ``bits`` the shift of ``key_add_val``.  Returns ``y``
     float32[n_recv], and with ``want_got`` also the int32 count.  ``src``
-    is used only by the plain version."""
+    is used only by the plain version; ``plan`` (:func:`push_plan` of
+    ``rowptr``) only by the kernel, which builds it (with a host read)
+    when not given."""
     _check(rowptr, col, x, n_recv, reduce_kind, process_op, val, sent,
            want_got, bits)
     if x.device.type == "cpu":
@@ -96,12 +143,16 @@ def spmv_push_csr(rowptr, col, x, n_recv, reduce_kind, process_op, val=None,
                                        bits)
     if x.device.type != "cuda":
         raise RuntimeError(f"spmv_push has no kernel for {x.device}")
+    if col.numel() > 2 ** 31 - 1 - CHUNK_EDGES:
+        raise ValueError("spmv_push takes fewer than 2^31 - 1025 edges")
     y = torch.full((n_recv,), IDENTITY[reduce_kind], dtype=torch.float32,
                    device=x.device)
     got = (torch.zeros(n_recv, dtype=torch.int32, device=x.device)
            if want_got else None)
     if x.numel() == 0 or n_recv == 0:
         return (y, got) if want_got else y
+    if plan is None:
+        plan = push_plan(rowptr)
     mode = "dense" if sent is None else ("sparse_got" if want_got
                                          else "sparse")
     lib = _lib.load()
@@ -109,7 +160,8 @@ def spmv_push_csr(rowptr, col, x, n_recv, reduce_kind, process_op, val=None,
         rowptr.data_ptr(), col.data_ptr(),
         val.data_ptr() if process_op != "x" else None, x.data_ptr(),
         sent.data_ptr() if sent is not None else None, y.data_ptr(),
-        got.data_ptr() if want_got else None, x.numel(),
+        got.data_ptr() if want_got else None, plan.extra_tile.data_ptr(),
+        plan.extra_k.data_ptr(), plan.extra_tile.numel(), x.numel(),
         _REDUCE_CODE[reduce_kind], _PROCESS_CODE[process_op],
         {"dense": 0, "sparse": 1, "sparse_got": 2}[mode], bits,
         torch.cuda.current_stream(x.device).cuda_stream)
@@ -123,10 +175,11 @@ def spmv_push(sender_csr, x, reduce_kind, process_op, val=None, sent=None,
     """The push kernel over a graph's sender-major index (a
     ``core.graph.CSR`` from ``Graph.sender_csr``): ``x`` and ``sent`` hold
     one entry per sender, the result one per receiver (both ``n_pad``)."""
+    plan = plan_for(sender_csr) if x.device.type == "cuda" else None
     return spmv_push_csr(sender_csr.rowptr, sender_csr.col, x,
                          sender_csr.n_send, reduce_kind, process_op, val=val,
                          sent=sent, want_got=want_got, src=sender_csr.row,
-                         bits=bits)
+                         bits=bits, plan=plan)
 
 
 def spmv_push_reference(sender_csr, x, reduce_kind, process_op, val=None,

@@ -18,6 +18,7 @@ distances, labels, orders), on both kernel routes; incremental PageRank
 within 1e-5 of max(1, |pr|) (the push route sums by atomics).
 """
 
+import functools
 import os
 
 import numpy as np
@@ -471,3 +472,133 @@ def test_frontier_apps_on_cuda_match_cpu(cuda, route, monkeypatch):
             continue
         for a, b in zip(res, on_host[app]):
             np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+# ------------------- the split paths: hub senders, hub rows, group limits
+
+HUB = 1 << 20
+
+
+@functools.lru_cache(maxsize=None)
+def _hub_graph():
+    """RMAT-12 plus a sender with 2^20 out-edges (0-based id HUB + 1), a
+    receiver with 2^20 in-edges (HUB + 2), receivers and senders of
+    exactly 16, 17, 32, 33, 64, 65, C and C + 1 edges, and empty rows."""
+    rng = np.random.default_rng(12)
+    e = rmat_edgelist(12, 16, seed=3, device="cpu")
+    c = spmv2u.CHUNK_EDGES
+    span = np.arange(HUB)
+    src = [e.src.numpy().astype(np.int64) - 1, np.full(HUB, HUB + 1), span]
+    dst = [e.dst.numpy().astype(np.int64) - 1, span, np.full(HUB, HUB + 2)]
+    for i, ln in enumerate((16, 17, 32, 33, 64, 65, c, c + 1)):
+        peers = rng.choice(HUB, ln, replace=False)
+        src += [peers, np.full(ln, HUB + 16 + i)]
+        dst += [np.full(ln, HUB + 32 + i), peers]
+    src, dst = np.concatenate(src) + 1, np.concatenate(dst) + 1
+    n = HUB + 4096
+    return gt.Graph(gt.edgelist_from_arrays(
+        src, dst, np.ones(len(src), np.float32), m=n, n=n),
+        device="cuda", compact=False)
+
+
+def _hub_inputs(g, kind, op, nnz, seed):
+    """x (for a sum of keys: half keys, half signed values the op passes
+    through), val, the 1% frontier with the hub sender, a 50% final mask
+    with the hub receiver's row final."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    n = g.n_pad
+    x = torch.randn(n, generator=gen, device="cuda")
+    val = torch.randn(nnz, generator=gen, device="cuda")
+    if op == "key_add_val":
+        keys = spmv2u.KEY_BIAS + torch.randint(
+            0, 1 << 20, (n,), generator=gen, device="cuda")
+        xk = keys.to(torch.int32).view(torch.float32).clone()
+        half = torch.rand(n, generator=gen, device="cuda") < 0.5
+        x = torch.where(half, xk, x if kind == "sum" else float("inf"))
+        val = torch.randint(1, 8, (nnz,), generator=gen, device="cuda").float()
+    sent = (torch.rand(n, generator=gen, device="cuda") < 0.01).to(
+        torch.uint8)
+    sent[HUB + 1] = 1
+    rf = (torch.rand(n, generator=gen, device="cuda") < 0.5).to(torch.uint8)
+    rf[HUB + 2] = 1
+    return x, val, sent, rf
+
+
+def _check_against_plain(out, ref, kind, got, terms, recv_of_edge, sent_e):
+    if got:
+        (out, cnt), (ref, cnt_ref) = out, ref
+        assert torch.equal(cnt, cnt_ref)
+    if kind != "sum":
+        assert torch.equal(out, ref)
+        return
+    if sent_e is not None:
+        terms = terms * sent_e
+    bound = torch.zeros_like(out).index_add_(0, recv_of_edge,
+                                             terms.abs()) * 1e-5
+    assert bool(((out - ref).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("mode", ["dense", "sparse", "sparse_final"])
+@pytest.mark.parametrize("op", ["x", "x_mul_val", "x_add_val",
+                                "key_add_val"])
+@pytest.mark.parametrize("kind", ["sum", "min", "max"])
+def test_hub_graph_kernels_match_plain(cuda, kind, op, mode):
+    """K1 and the push on the hub graph, where hub rows are chunked and
+    combined, hub senders spread over many warps and every lane-group
+    width runs: min, max and counts bitwise, sums within 1e-5 of Σ|terms|."""
+    g = _hub_graph()
+    rc, sc = g.csr("dst"), g.sender_csr("dst")
+    x, val, sent, rf = _hub_inputs(g, kind, op, rc.nnz, 7)
+    sent = None if mode == "dense" else sent
+    got = kind == "sum" and sent is not None
+    kw = dict(val=val, sent=sent, want_got=got,
+              recv_final=rf if mode == "sparse_final" else None, bits=20)
+    _check_against_plain(
+        spmv2u.spmv(rc, x, kind, op, **kw),
+        spmv2u.spmv_reference(rc, x, kind, op, **kw), kind, got,
+        spmv2u.PROCESS_OPS[op](x[rc.col.long()], val, 20), rc.row.long(),
+        None if sent is None else sent[rc.col.long()].float())
+    if mode == "sparse_final":
+        return
+    x, val, _, _ = _hub_inputs(g, kind, op, sc.nnz, 8)
+    kw = dict(val=val, sent=sent, want_got=got, bits=20)
+    _check_against_plain(
+        spmv2.spmv_push(sc, x, kind, op, **kw),
+        spmv2.spmv_push_reference(sc, x, kind, op, **kw), kind, got,
+        spmv2u.PROCESS_OPS[op](x[sc.row.long()], val, 20), sc.col.long(),
+        None if sent is None else sent[sc.row.long()].float())
+
+
+def test_k1_dense_sum_is_bitwise_repeatable(cuda):
+    """No atomics in K1: two launches give the same bits, hub rows too."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(9)
+    for g in (_hub_graph(), _rmat_graph(cuda, build_in_edges=False)):
+        c = g.csr("dst")
+        x = torch.randn(g.n_pad, generator=gen, device=cuda)
+        val = torch.randn(c.nnz, generator=gen, device=cuda)
+        a = spmv2u.spmv(c, x, "sum", "x_mul_val", val=val)
+        b = spmv2u.spmv(c, x, "sum", "x_mul_val", val=val)
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_push_equals_k1_at_a_bfs_level_of_the_hub_graph(cuda):
+    """BFS level 1 from the hub sender: its 2^20 out-neighbours send their
+    ids; K1 (with the visited rows final) and the push agree in min and
+    max on every live row."""
+    g = _hub_graph()
+    rc, sc = g.csr("dst"), g.sender_csr("dst")
+    front = torch.zeros(g.n_pad, dtype=torch.bool, device="cuda")
+    front[sc.col[sc.rowptr[HUB + 1]:sc.rowptr[HUB + 2]].long()] = True
+    sent = front.to(torch.uint8)
+    rf = (front | ~g.valid_vertex).to(torch.uint8)
+    rf[HUB + 1] = 1
+    live = rf == 0
+    ids = torch.arange(1, g.n_pad + 1, device="cuda").float()
+    for kind, fill in (("min", float("inf")), ("max", float("-inf"))):
+        xs = ids.masked_fill(~front, fill)
+        a = spmv2u.spmv(rc, xs, kind, "x", sent=sent, recv_final=rf)
+        b = spmv2.spmv_push(sc, xs, kind, "x", sent=sent)
+        assert torch.equal(a[live], b[live])
+        assert float(a[HUB + 2]) == (1.0 if kind == "min" else float(HUB))
