@@ -33,8 +33,11 @@ raises and the script exits non-zero:
    with compaction off; each kernel alone at the slice's shapes beside
    its plain version; GTEPS and peak device memory;
 7. K3 (the K-wide three-operand SpMV) against its plain version on a
-   seeded bipartite graph of 1M ratings, for every op at K = 1, 20 and
-   40; rows without edges must be exactly 0;
+   seeded bipartite graph of 1M ratings, for every op at K = 1, 4, 20,
+   40, 96, 161, 200 and 513 (past 256 columns the slab kernel), and at
+   K = 4, 20 and 161 on a row-length graph (empty rows, rows of 1, 31,
+   32 and 33 edges, one row of 2^16 edges); rows without edges must be
+   exactly 0, and each dense sum bitwise the same over two launches;
 8. the SGD and LDA CLIs on ``data/ratings7.bin.mtx`` against the
    reference binary's outputs in ``tests/golden``;
 9. SGD at MovieLens-25M shape (162,541 users, 59,047 rated items,
@@ -47,7 +50,11 @@ raises and the script exits non-zero:
     against a chunked float64 oracle on the card;
 11. timings from CUDA events: an SGD and an LDA iteration on the kernel
     path and on the plain path, K3 alone at those shapes beside its plain
-    version, M edge-updates/s and M token-updates/s, peak device memory;
+    version (every op), M edge-updates/s and M token-updates/s, peak
+    device memory, each iteration's torch.profiler breakdown; and
+    ``k3_diagnosis``: K3 at several K, ``sgd`` with vp = 0 at the LDA
+    shape (the gather's floor), ``lda`` on the term rows against the doc
+    rows;
 12. K1's recv_final skip (0, 50 and 100% of rows final, sparse min and
     sum with got) and packed-key ⊗, and the push kernel (sum with got,
     min, max, every ⊗; dense and frontiers of 0.01%, 1% and 50% of
@@ -74,10 +81,11 @@ raises and the script exits non-zero:
     kernel (K1 without the first 32 or 1024 rows, the push without the
     first 32 senders and without its atomics, beside cuSPARSE), peak
     device memory;
-16. K3's sparse mode against its plain version on phase 7's graph, every
-    op at K = 1, 20, 40 with 100%, 10%, 1% and 0.01% of senders sent (the
-    got count exact, at 100% bitwise the dense mode), and K5's function
-    through K1's op x (sum, min, max) against ``ops/spmv.py``;
+16. K3's sparse mode against its plain version on phase 7's graphs, every
+    op at phase 7's widths with 100%, 10%, 1% and 0.01% of senders sent
+    (100% and 10% on the row-length graph; the got count exact, at 100%
+    bitwise the dense mode), and K5's function through K1's op x (sum,
+    min, max) against ``ops/spmv.py``;
 17. ACTIVE_ONLY subclasses of SGDProgram and RMSEProgram at MovieLens-25M
     shape, K = 20, through ``Engine.step_once``: one SGD step from seeded
     frontiers of 100%, 10% and 1% of the vertices against a float64
@@ -139,6 +147,14 @@ RAND_MAX = 2 ** 31 - 1
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 FP32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 K3_OPS = ("sgd", "sgd_sqerr", "lda_init", "lda", "lda_loglik")
+# K3's widths in phases 7 and 16: one lane an edge (K = 1, 4), lane groups
+# of 4 to 32 (K = 20 to 200; 160 was the parent kernel's bound), and the
+# slab kernel past 256 columns
+K3_WIDTHS = (1, 4, 20, 40, 96, 161, 200, 513)
+# rows of the row-length graph: empty, one edge, a warp's batch of 32 edges
+# and one either side of it, and one row of 2^16 edges
+ROW_LENGTHS = ((0, 64), (1, 512), (31, 64), (32, 64), (33, 64),
+               (1 << 16, 1))
 
 
 def log(*args):
@@ -520,11 +536,14 @@ def k3_row_scale(csr, op, x, vp, extra, params, sent=None):
     return total
 
 
-def check_k3_case(csr, op, x, vp, extra, params, device, sent=None):
+def check_k3_case(csr, op, x, vp, extra, params, device, sent=None,
+                  long_rows=False):
     """K3 against its plain version on one input; returns max |error|.
-    With ``sent`` (uint8 per sender), K3's sparse mode: the got count
-    exactly, a row without a sent edge exactly 0, and with every sender
-    sent the dense mode's bits."""
+    Each sum is bitwise the same over two launches.  With ``sent`` (uint8
+    per sender), K3's sparse mode: the got count exactly, a row without a
+    sent edge exactly 0, and with every sender sent the dense mode's bits.
+    ``long_rows`` (the row-length graph) bounds a row of deg terms by the
+    float32 summation error of deg terms where that passes SUM_RTOL."""
     import torch
     from graphmat_tpu_torch.ops import spmv_vec as ss
     from graphmat_tpu_torch.ops import spmv_vec2 as sv
@@ -541,6 +560,12 @@ def check_k3_case(csr, op, x, vp, extra, params, device, sent=None):
     sync(device)
     if torch.device(device).type == "cuda" and counter[op] != before + 1:
         raise AssertionError(f"{what}: the kernel did not launch")
+    if torch.device(device).type == "cuda":
+        again = (sv.spmv_vec_csr(*args, row=csr.row) if sent is None else
+                 ss.spmv_vec_sparse_csr(*sargs, row=csr.row))
+        if not (torch.equal(out, again) if sent is None else
+                torch.equal(out, again[0]) and torch.equal(got, again[1])):
+            raise AssertionError(f"{what}: two launches differ")
     if sent is None:
         ref = sv.spmv_vec_csr_reference(*args, row=csr.row)
         deg = csr.rowptr.diff()
@@ -566,6 +591,13 @@ def check_k3_case(csr, op, x, vp, extra, params, device, sent=None):
     if op == "lda_init":
         degf = deg.to(out.dtype)[:, None]
         bound *= (2 * (degf - 1).clamp(min=0) + 2 * x.shape[1]) * F32_UNIT
+    elif long_rows:
+        # a row's float32 sum of deg terms, in the kernel's order and in
+        # index_add_'s (which changes from run to run on CUDA), errs by up
+        # to (deg - 1) units of the row's sum each: past SUM_RTOL only
+        # from 85 edges on (the row-length graph's row of 2^16 edges)
+        degf = deg.to(out.dtype)[:, None]
+        bound *= torch.clamp(2 * (degf - 1) * F32_UNIT, min=SUM_RTOL)
     else:
         bound *= SUM_RTOL
     err = (out - ref).abs()
@@ -594,30 +626,61 @@ def ratings_edgelist(users, items, ratings, seed, device):
     return EdgeList(n, n, src, dst, val)
 
 
+def rowlen_edgelist(device, n=1 << 17, seed=19):
+    """A graph whose receiver rows have the lengths of ``ROW_LENGTHS``
+    (distinct senders drawn at random, integer counts 1..5), among rows
+    without edges."""
+    import torch
+    from graphmat_tpu_torch import EdgeList
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    src, dst = [], []
+    recv = 1
+    for length, count in ROW_LENGTHS:
+        for _ in range(count):
+            src.append(1 + torch.randperm(n, generator=gen,
+                                          device=device)[:length])
+            dst.append(torch.full((length,), recv, device=device))
+            recv += 2   # a row without edges between any two
+    src = torch.cat(src).to(torch.int32)
+    dst = torch.cat(dst).to(torch.int32)
+    val = torch.randint(1, 6, (src.numel(),), generator=gen,
+                        device=device).float()
+    return EdgeList(n, n, src, dst, val)
+
+
 def phase_k3(device, users=60_000, items=20_000, ratings=1_000_000,
-             seed=17):
-    """Phase 7: K3 against its plain version, every op at K = 1, 20, 40,
-    on a bipartite graph: the receiver=dst rows of the users have no
-    edges."""
+             seed=17, widths=K3_WIDTHS):
+    """Phase 7: K3 against its plain version, every op at each of
+    ``widths`` on a bipartite graph (the receiver=dst rows of the users
+    have no edges), then at K = 4, 20 and 161 on the row-length graph;
+    each dense sum bitwise the same over two launches."""
     import torch
     from graphmat_tpu_torch import Graph
     e = ratings_edgelist(users, items, ratings, seed, device)
     e.val = torch.ceil(e.val)   # integer counts, which lda_init needs
     g = Graph(e, device=device, build_in_edges=False, compact=False)
-    csr = g.csr("dst")
-    n_empty = int((csr.rowptr.diff() == 0).sum())
+    gr = Graph(rowlen_edgelist(device), device=device, build_in_edges=False,
+               compact=False)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     params = {"alpha": 1.0, "eta": 5.0, "vocab_size": items}
-    worst = 0.0
-    for k in (1, 20, 40):
-        for op in K3_OPS:
-            x, vp, extra = k3_inputs(op, k, g.n_pad, gen, device)
-            worst = max(worst, check_k3_case(csr, op, x, vp, extra, params,
-                                             device))
-    log(f"phase 7: K3 agrees in {3 * len(K3_OPS)} cases on n={g.n} "
-        f"nnz={csr.nnz} ({n_empty} rows without edges; max in-degree "
-        f"{int(csr.rowptr.diff().max())}); max |err| {worst:.3e}")
+    worst, cases = 0.0, 0
+    for graph, ks in ((g, widths), (gr, (4, 20, 161))):
+        csr = graph.csr("dst")
+        for k in ks:
+            for op in K3_OPS:
+                x, vp, extra = k3_inputs(op, k, graph.n_pad, gen, device)
+                worst = max(worst, check_k3_case(
+                    csr, op, x, vp, extra, params, device,
+                    long_rows=graph is gr))
+                cases += 1
+    csr = g.csr("dst")
+    log(f"phase 7: K3 agrees in {cases} cases, K in {list(widths)}, on "
+        f"n={g.n} nnz={csr.nnz} ({int((csr.rowptr.diff() == 0).sum())} "
+        f"rows without edges; max in-degree {int(csr.rowptr.diff().max())})"
+        f" and on the row-length graph (nnz={gr.nnz}); each dense sum "
+        f"bitwise over two launches; max |err| {worst:.3e}")
     return worst
 
 
@@ -900,6 +963,64 @@ def phase_lda(device, docs, terms, entries, k=20, seed=29, iterations=10):
                               peak_bytes=peak)
 
 
+DIAG_KS = {"sgd": (4, 20, 40, 96, 128), "lda": (4, 20, 40)}
+
+
+def rows_view(c, a, b):
+    """Rows [a, b) of CSR ``c`` as a CSR of its own (views, no copies)."""
+    from graphmat_tpu_torch.core.graph import CSR
+    e0, e1 = int(c.rowptr[a]), int(c.rowptr[b])
+    return CSR(c.rowptr[a:b + 1] - e0, c.col[e0:e1], c.row[e0:e1] - a,
+               c.val[e0:e1], c.n_send)
+
+
+def k3_diagnosis(g_sgd, g_lda, params, reps=10, seed=41):
+    """Where K3's time goes, on random operands at each slice's shape, one
+    direction: (a) ``sgd`` on MovieLens-25M's item rows and ``lda`` on
+    NYTimes' term rows at several K (how time scales with components);
+    (b) ``sgd`` with vp = 0 on the term rows at K = 20: the gather of x's
+    row and one FMA a component, a proxy for the per-edge gather floor;
+    (c) ``lda`` at K = 20 on the term rows alone (679 edges on average)
+    against the doc rows alone (232), each through a view without the
+    other kind's empty rows."""
+    import torch
+    from graphmat_tpu_torch.ops import spmv_vec2 as sv
+    dev = g_sgd.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    ndoc = int(g_lda.vp["is_doc"].sum())
+    n_lda = g_lda.n
+    terms = rows_view(g_lda.csr("dst"), ndoc, n_lda)
+    docs = rows_view(g_lda.csr("src"), 0, ndoc)
+    items = g_sgd.csr("dst")
+
+    def time(csr, op, x, vp, extra, rows=slice(None)):
+        vr = vp[rows] if vp is not None else None
+        return event_ms(lambda: sv.spmv_vec_csr(
+            csr.rowptr, csr.col, csr.val_f32, x, op, vr, extra, params),
+            reps)
+    out = {"a": {}}
+    for op, csr, n, rows in (("sgd", items, g_sgd.n_pad, slice(None)),
+                             ("lda", terms, g_lda.n_pad,
+                              slice(ndoc, n_lda))):
+        for k in DIAG_KS[op]:
+            x, vp, extra = k3_inputs(op, k, n, gen, dev)
+            out["a"][f"{op}_k{k}_ms"] = time(csr, op, x, vp, extra, rows)
+            del x, vp
+    x, _, _ = k3_inputs("sgd", 20, g_lda.n_pad, gen, dev)
+    out["b_sgd_vp0_lda_shape_ms"] = time(terms, "sgd", x,
+                                         torch.zeros_like(x), None,
+                                         slice(ndoc, n_lda))
+    x, vp, extra = k3_inputs("lda", 20, g_lda.n_pad, gen, dev)
+    out["c_lda_term_rows_ms"] = time(terms, "lda", x, vp, extra,
+                                     slice(ndoc, n_lda))
+    out["c_lda_doc_rows_ms"] = time(docs, "lda", x, vp, extra,
+                                    slice(0, ndoc))
+    out["edges"] = {"items": items.nnz, "terms": terms.nnz,
+                    "docs": docs.nnz}
+    return out
+
+
 def phase_ml_timings(g_sgd, g_lda, gn_lda, card, k=20):
     """Phase 11: SGD and LDA iteration and K3 times at the slices'
     shapes, kernel beside plain."""
@@ -955,6 +1076,16 @@ def phase_ml_timings(g_sgd, g_lda, gn_lda, card, k=20):
             lambda: sv.spmv_vec_reference(*args), 3, warm=1)
         err = max(err, check_k3_case(csr, op, x, vp, extra, params,
                                      g_sgd.device))
+    # the other ops once each, on random operands at the slices' shapes
+    gen = torch.Generator(device=g_sgd.device)
+    gen.manual_seed(43)
+    for name, csr, op, n in (("sgd_sqerr", c_sgd, "sgd_sqerr", g_sgd.n_pad),
+                             ("lda_init", c_lda, "lda_init", g_lda.n_pad),
+                             ("lda_loglik", c_lda, "lda_loglik",
+                              g_lda.n_pad)):
+        x, vp, extra = k3_inputs(op, k, n, gen, g_sgd.device)
+        k3[name + "_ms"] = event_ms(lambda: sv.spmv_vec_csr(
+            csr.rowptr, csr.col, csr.val_f32, x, op, vp, extra, params), 5)
     sgd_ms, lda_ms = min(step["sgd_kernel"]), min(step["lda_kernel"])
     # K3 sgd's bound: rowptr, col, val, x, vp and y once; 4K flops a edge
     k3_bytes = 4 * (c_sgd.rowptr.numel() + 2 * c_sgd.nnz
@@ -977,6 +1108,9 @@ def phase_ml_timings(g_sgd, g_lda, gn_lda, card, k=20):
         "card": card,
         "step_ms": step,
         "k3_ms": k3,
+        "k3_diagnosis": k3_diagnosis(g_sgd, g_lda, params),
+        "sgd_profile": profile_run(sgd_step),
+        "lda_profile": profile_run(lda_step),
         "sgd_medges_per_s": 2 * g_sgd.nnz / (sgd_ms * 1e-3) / 1e6,
         "sgd_medges_per_s_plain":
             2 * g_sgd.nnz / (min(step["sgd_plain"]) * 1e-3) / 1e6,
@@ -1948,10 +2082,11 @@ CHANGED_TOL = 1e-7   # SGDProgram.changed's threshold
 
 
 def phase_sparse_kernels(device, users=60_000, items=20_000,
-                         ratings=1_000_000, seed=17):
+                         ratings=1_000_000, seed=17, widths=K3_WIDTHS):
     """Phase 16: K3's sparse mode (K4 with K5's got count) against its
-    plain version, every op at K = 1, 20 and 40 with 100%, 10%, 1% and
-    0.01% of senders sent, on phase 7's graph: counts exact, rows without
+    plain version, every op at each of ``widths`` with 100%, 10%, 1% and
+    0.01% of senders sent, on phase 7's graph, and at K = 4, 20 and 161
+    with 100% and 10% on the row-length graph: counts exact, rows without
     a sent edge exactly 0, at 100% the dense mode's bits; K5's function
     through K1's op ``x`` against ``ops/spmv.py``'s plain version (min
     and max bitwise, the sum within the row bound)."""
@@ -1961,20 +2096,26 @@ def phase_sparse_kernels(device, users=60_000, items=20_000,
     e = ratings_edgelist(users, items, ratings, seed, device)
     e.val = torch.ceil(e.val)   # integer counts, which lda_init needs
     g = Graph(e, device=device, build_in_edges=False, compact=False)
-    csr = g.csr("dst")
+    gr = Graph(rowlen_edgelist(device), device=device, build_in_edges=False,
+               compact=False)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     params = {"alpha": 1.0, "eta": 5.0, "vocab_size": items}
     worst, cases = 0.0, 0
-    for k in (1, 20, 40):
-        for op in K3_OPS:
-            x, vp, extra = k3_inputs(op, k, g.n_pad, gen, device)
-            for share in SPARSE_SHARES:
-                sent = (torch.rand(g.n_pad, generator=gen, device=device)
-                        < share).to(torch.uint8)
-                worst = max(worst, check_k3_case(csr, op, x, vp, extra,
-                                                 params, device, sent=sent))
-                cases += 1
+    for graph, ks, shares in ((g, widths, SPARSE_SHARES),
+                              (gr, (4, 20, 161), (1.0, 0.1))):
+        csr = graph.csr("dst")
+        for k in ks:
+            for op in K3_OPS:
+                x, vp, extra = k3_inputs(op, k, graph.n_pad, gen, device)
+                for share in shares:
+                    sent = (torch.rand(graph.n_pad, generator=gen,
+                                       device=device) < share).to(torch.uint8)
+                    worst = max(worst, check_k3_case(
+                        csr, op, x, vp, extra, params, device, sent=sent,
+                        long_rows=graph is gr))
+                    cases += 1
+    csr = g.csr("dst")
     colx, rowx = csr.col.long(), csr.row.long()
     k5_err = 0.0
     for kind in ("sum", "min", "max"):
@@ -2385,6 +2526,14 @@ def main(argv=None):
             sum(k3_sgd.values()) + sum(k3_lda.values()), k3_err,
             t3["k3_ms"]["sgd_ms"], t3["k3_ms"]["sgd_plain_ms"],
             t3["k3_ms"]["sgd_bound_ms"], t3["k3_ms"]["sgd_bound_by"], None),
+        # the same kernel's lda op at NYTimes shape (its launches are
+        # counted in the record above too)
+        kernel_record(
+            "spmv_vec2 (lda)", "graphmat_tpu_torch/csrc/spmv_vec2.cu",
+            "graphmat_tpu/ops/pallas_spmv_vec2.py:510",
+            sum(k3_lda.values()), k3_err, t3["k3_ms"]["lda_ms"],
+            t3["k3_ms"]["lda_plain_ms"], t3["k3_ms"]["lda_bound_ms"],
+            t3["k3_ms"]["lda_bound_by"], None),
         kernel_record(
             "spmv2", "graphmat_tpu_torch/csrc/spmv2.cu",
             "graphmat_tpu/ops/pallas_spmv2.py:388 and :1154",

@@ -11,7 +11,8 @@ of runtime.py:278-352, after ``include/GraphMatRuntime.h:94-279``):
    (:func:`graphmat_tpu_torch.ops.spmv_vec.spmv_vec_sparse`, which skips
    the senders that did not send and counts the others: K4 with K5's got
    pass) for an ACTIVE_ONLY one; for a program with a
-   :class:`Semiring`, on the scalar kernel the JAX package's selector
+   :class:`Semiring` and ``process_requires_vertexprop = False``, on the
+   scalar kernel the JAX package's selector
    ``GRAPHMAT_KERNEL`` names (:func:`legacy_kernel_env`): ``v2u``, the
    default, runs K1 (:func:`graphmat_tpu_torch.ops.spmv2u.spmv`) over the
    receiver CSR, with the program's receiver-finality mask on sparse
@@ -126,7 +127,11 @@ class Engine:
         self.program = program
         self.graph = graph
         self.ctx = ctx if ctx is not None else IterationContext()
-        self._semiring = _normalize_semiring(program.semiring())
+        # a scalar kernel cannot read the receiver's property: a program
+        # whose ⊗ does (the default) runs its own process_message, as the
+        # JAX Engine does (graphmat_tpu/core/runtime.py:190-192)
+        self._semiring = (None if program.process_requires_vertexprop
+                          else _normalize_semiring(program.semiring()))
         # dense K3 for ALL_VERTICES, its sparse mode for ACTIVE_ONLY; the
         # JAX package's fallback from K4 past a VMEM budget
         # (graphmat_tpu/core/runtime.py:162-179) has no counterpart: the

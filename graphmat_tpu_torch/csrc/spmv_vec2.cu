@@ -22,10 +22,10 @@
 // kernels, not their layout: no V4 rows of four 32-lane slots, window
 // classes, WYK receiver windows, rotations, one-hot MXU gathers, bf16 split
 // planes or range-prefix-sum scatter (those served VMEM and the MXU).  A
-// row with no sent edge writes 0 and a count of 0.  The input is
-// the receiver CSR of graphmat_tpu_torch (rowptr over receivers, col =
-// sender of each edge, edges sorted by (receiver, sender)); x is
-// [n_send, k] and vp [n_rows, k], both row-major float32.
+// row with no sent edge writes 0 and a count of 0.  The input is the
+// receiver CSR of graphmat_tpu_torch (rowptr over receivers, col = sender
+// of each edge, edges sorted by (receiver, sender)); x is [n_send, k] with
+// rows ldx floats apart, vp [n_rows, k], both float32.
 //
 // The JAX kernel takes process as a closure traced into the kernel; CUDA
 // needs a closed set, so process is a template parameter over the ops the
@@ -45,32 +45,70 @@
 //               phi = (vp_r + eta - 1) / extra, theta = x + eta - 1
 //                                                            1 column out
 //
-// What bounds it on an H100: per edge it gathers one k-float row of x
-// (80 B at k = 20, three 32-B sectors) and runs one or two in-row
-// reductions across the k components.  At the slice's sizes x is 18-34 MB
-// and stays in the 50 MB L2; col and val (8 B per edge) stream from HBM.
-// The design: one warp per receiver row.  The receiver is fixed along the
-// row, so vp[r, :], the extra operand and whatever depends only on them
-// are loaded or computed once per row into registers (the receiver gather
-// the TPU built its windows for disappears).  Lane j holds components j,
-// j + 32, ... (at most kMaxPerLane, so k <= 160).  The row's edges are
-// read 32 at a time, coalesced, and broadcast by shuffle; each edge's x
-// row is a coalesced load across the lanes; the in-row dot products and
-// normalisations are xor-shuffle trees, which leave the same value in
-// every lane.  Each lane sums its components in registers in edge order
-// and writes y[r, :] once: no atomics, so a sum is bitwise repeatable.  A
-// row with no edges writes 0.  Long rows run on one warp; load balancing
-// is later work, as for K1.
+// What bounds it on an H100.  Per edge it gathers one row of x (80 B at
+// k = 20: three 32-B sectors) from L2, where x (18-39 MB at the slices'
+// sizes) stays; col and val (8 B an edge) stream from HBM.  That gather,
+// about 2.4 GB of sectors per sgd and 6.7 GB per lda launch at the
+// slices' shapes, is the floor, far above the HBM bound.  Reaching it
+// takes many gathers in flight.  The parent design (one warp per row,
+// one component per lane, the warp walking one edge at a time) sat far
+// above it, held by the issue rate: every edge cost a 5-step shuffle tree
+// per in-row sum, two shuffles to broadcast the edge, idle lanes for
+// k < 32, and for lda two IEEE divisions per component per edge (48% of
+// its time; PERF.md, K3's step 0).
 //
-// The sparse mode keeps that structure.  For each group of 32 edges each
-// lane loads its edge's sender flag (a dependent byte gather); a ballot
-// skips the group when no sender in it sent, else the warp walks only the
-// set bits, lowest first, so edges are summed in the dense mode's order:
-// with every sender sent the two modes give the same bits.  The popcount
-// of the ballots is the row's got count, written once by lane 0: K5's one
-// use in the JAX engine costs no second pass.  At a sparse frontier the
-// walk over col still reads every edge of the row; a frontier worklist is
-// later work.
+// The design: edges across lanes, not components.  A warp owns a
+// receiver row (so what depends on the receiver alone is computed once
+// per row, at its first (sent) edge, in registers), and a group of G
+// lanes owns
+// a whole edge: lane `sub` of the group holds components
+// 4 (sub + G i) + j (i < V, j < 4) and gathers them with 16-byte loads
+// where x's rows are 16-byte aligned (the wrapper pads x to a multiple of
+// 4 columns), so a warp has 32 / G row gathers in flight where it had
+// one.  G and V follow the width (template parameters): one lane an edge
+// up to 8 components, then the fewest lanes of 2, 4, ..., 32 with V = 2,
+// up to 256.  A lane never holds more than 8 components, so a kernel
+// keeps to about 64 registers and an SM runs 32 warps: on the card more
+// warps beat fuller lanes (PERF.md).  The in-row sums (sgd's dot
+// product, lda's normaliser, lda_loglik's theta total and dot) are taken
+// inside the lane in four fixed partial chains, then across the group by
+// an xor tree.  lda multiplies by reciprocals: the block keeps
+// 1 / (extra[c] + V(eta - 1)) in shared memory, a lane folds it into the
+// receiver's factor once per row, and scales an edge by val / tot, one
+// division an edge instead of 2 (k - 1); each term moves by about one
+// unit of roundoff against the JAX formula.  lda_init's rand_r jumps (the
+// LCG advanced 3c steps for component c) are built once per block into
+// shared memory, by squaring; lda_init, which runs once a run, sums in
+// double and rounds once.  One wave of blocks, as many as the card
+// holds, walks the rows, each warp loading its next row's extent and the
+// next 64 edges' col and val while it works.  At the row's end the
+// groups' partial sums meet in a fixed xor tree and are written once: no
+// atomics.  The edges of a row go to the groups by rank, the i-th to
+// group i mod (32 / G), and each group sums its edges in edge order with
+// one fused multiply-add each, so a sum is bitwise the same from launch
+// to launch.
+//
+// Wider rows (more than 256 components) take the slab kernel: the warp
+// walks the row's edges one at a time, each lane holding components
+// lane + 32 t of a slab of 128; an op with an in-row sum makes one pass
+// over x's row for the sum and a second for the terms, which accumulate
+// in y's row itself (the warp owns it; edge order, no atomics).  Any
+// width int32 indexing addresses runs.
+//
+// The sparse mode keeps the structure.  It reads a row's edges 64 at a
+// time: each lane loads its two edges' sender flags (dependent byte
+// gathers) and the values of the sent ones, and the next 64 edges' col,
+// all in flight together.  The sent edges are compacted in order into a
+// per-warp buffer in shared memory, which is handed out, by rank in the
+// row, once it holds 32 edges or the row ends, exactly as the dense mode
+// hands out all edges: with every sender sent the two modes give the same
+// bits.  At a sparse frontier a row's few sent edges are so gathered in
+// one step, not one step each.  The popcount of the ballots is the row's
+// got count, written once: K5's one use in the JAX engine costs no second
+// pass.  At a sparse frontier the walk still reads every edge's col and
+// gathers its sender's flag, which holds the mode near the old design's
+// time below 10% sent (at 1% sent a few percent above it; PERF.md); a
+// frontier worklist is later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -80,27 +118,50 @@ namespace {
 enum Op { kSgd = 0, kSgdSqerr = 1, kLdaInit = 2, kLda = 3, kLdaLoglik = 4 };
 
 constexpr int kWarpsPerBlock = 8;
-constexpr int kMaxPerLane = 5;  // k <= 32 * kMaxPerLane = 160
+constexpr int kMaxV = 2;     // float4s of components a lane holds
+constexpr int kMaxG = 32;    // lanes an edge takes in the register layout
+constexpr int kRegWidth = 4 * kMaxV * kMaxG;   // 256; wider: the slab kernel
+constexpr int kSlab = 128;   // components a slab covers, 4 per lane
+constexpr int kDenseSpan = 64;     // edges the dense mode reads at once
+constexpr int kSparseSpan = 64;    // edges the sparse mode reads at once
 constexpr uint32_t kLcgA = 1103515245u;
 constexpr uint32_t kLcgC = 12345u;
 constexpr float kInvRandMaxF32 = 4.656612873077392578125e-10f;  // 2^-31
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+struct Args {
+  const int* rowptr;
+  const int* col;
+  const float* val;
+  const float* x;
+  const float* vp;
+  const float* extra;
+  const uint8_t* sent;
+  float* y;
+  int* got;
+  int n_rows, k, ldx, nc;
+  bool xvec, vpvec, yvec;   // x's, vp's and y's rows 16-byte aligned
+  float s0, s1, s2;
+};
+
+// The LCG s -> A s + C advanced n steps, as s -> a s + c (mod 2^32): by
+// squaring (powers of one affine map commute).
+struct Jump {
+  uint32_t a, c;
+};
+
+__device__ __forceinline__ Jump lcg_jump(uint32_t n) {
+  Jump r{1u, 0u}, p{kLcgA, kLcgC};
+  while (n != 0u) {
+    if (n & 1u) r = Jump{p.a * r.a, p.a * r.c + p.c};
+    p = Jump{p.a * p.a, p.a * p.c + p.c};
+    n >>= 1;
+  }
+  return r;
 }
 
-// The op's number of components (the width of the per-edge vectors).
-template <int OP>
-__device__ __forceinline__ int components(int k) {
-  return OP == kLda ? k - 1 : k;
-}
-
-// glibc rand_r from a state already advanced by the lane's jump: three LCG
-// steps, 11 + 10 + 10 bits.  Divided by float32(RAND_MAX) = 2^31 as the
-// JAX package does, which is exact.
+// glibc rand_r from a state already advanced by the component's jump:
+// three LCG steps, 11 + 10 + 10 bits.  Divided by float32(RAND_MAX) = 2^31
+// as the JAX package does, which is exact.
 __device__ __forceinline__ float rand_r_uniform(uint32_t st) {
   st = st * kLcgA + kLcgC;
   uint32_t r = (st >> 16) & 2047u;
@@ -111,138 +172,499 @@ __device__ __forceinline__ float rand_r_uniform(uint32_t st) {
   return __int2float_rn(static_cast<int>(r)) * kInvRandMaxF32;
 }
 
-// s0, s1, s2: for lda, alpha, eta and V * (eta - 1); for lda_loglik,
-// eta - 1; unused otherwise.
-template <int OP, int NPL, bool SPARSE>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-spmv_vec2_kernel(const int* __restrict__ rowptr, const int* __restrict__ col,
-                 const float* __restrict__ val, const float* __restrict__ x,
-                 const float* __restrict__ vp,
-                 const float* __restrict__ extra,
-                 const uint8_t* __restrict__ sent, float* __restrict__ y,
-                 int* __restrict__ got, int n_rows, int k, float s0,
-                 float s1, float s2) {
-  const int lane = threadIdx.x & 31;
-  const int nwarps = (gridDim.x * blockDim.x) >> 5;
-  const int nc = components<OP>(k);
-
-  bool live[NPL];
-  float ex[NPL];        // per-component constant from extra
-  uint32_t jump_a[NPL];  // lda_init: LCG state after 3 * c steps is
-  uint32_t jump_c[NPL];  //   jump_a * seed + jump_c (mod 2^32)
+__device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-  for (int i = 0; i < NPL; ++i) {
-    const int c = lane + 32 * i;
-    live[i] = c < nc;
-    ex[i] = 0.0f;
-    if (OP == kLda && live[i]) ex[i] = __ldg(extra + c) + s2;
-    if (OP == kLdaLoglik && live[i]) ex[i] = __ldg(extra + c);
-    jump_a[i] = 1u;
-    jump_c[i] = 0u;
-    if (OP == kLdaInit && live[i]) {
-      // topics advance the LCG in global order: topic c starts 3c steps in
-      for (int s = 0; s < 3 * c; ++s) {
-        jump_c[i] = jump_c[i] * kLcgA + kLcgC;
-        jump_a[i] = jump_a[i] * kLcgA;
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// An xor tree over the lanes [lo, hi) of an offset range; every lane ends
+// with the same bits (IEEE addition commutes).
+template <typename T>
+__device__ __forceinline__ T xor_sum(T v, int lo, int hi) {
+  for (int off = lo; off < hi; off <<= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// The sum of n values in four fixed chains, then a fixed pairing.
+template <int N>
+__device__ __forceinline__ float sum4(const float* v) {
+  float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < N; ++i) p[i & 3] += v[i];
+  return (p[0] + p[1]) + (p[2] + p[3]);
+}
+
+// ------------------------------------------- register layout, width <= 256
+
+// One warp per receiver row; a group of G lanes per edge; lane `sub` of a
+// group holds components 4 (sub + G i) + j, i < V, j < 4.
+template <int OP, int G, int V, bool SPARSE>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+k3_lanes(const Args a) {
+  constexpr int C = 4 * V;
+  constexpr int NG = 32 / G;       // edges a warp holds in flight
+  constexpr bool kCst = OP == kLda || OP == kLdaLoglik;
+  // the sparse mode's buffer of sent edges: fewer than 32 wait while a
+  // span is read
+  __shared__ int s_col[kWarpsPerBlock][SPARSE ? kSparseSpan + 32 : 1];
+  __shared__ float s_val[kWarpsPerBlock][SPARSE ? kSparseSpan + 32 : 1];
+  // per-component constants, built once per block: lda's
+  // 1 / (extra + V(eta - 1)), lda_loglik's extra, lda_init's jumps
+  __shared__ float s_cst[kCst ? kRegWidth : 1];
+  __shared__ Jump s_jmp[OP == kLdaInit ? kRegWidth : 1];
+  const int lane = threadIdx.x & 31;
+  const int wib = threadIdx.x >> 5;
+  const int grp = lane / G;
+  const int sub = lane % G;
+  const int nwarps = (gridDim.x * blockDim.x) >> 5;
+  const int nc = a.nc;
+  const int k = a.k;
+  for (int c = threadIdx.x; c < nc; c += blockDim.x) {
+    if (OP == kLda) s_cst[c] = 1.0f / (__ldg(a.extra + c) + a.s2);
+    if (OP == kLdaLoglik) s_cst[c] = __ldg(a.extra + c);
+    if (OP == kLdaInit) s_jmp[c] = lcg_jump(3u * static_cast<uint32_t>(c));
+  }
+  __syncthreads();
+  // the component of slot (i, j)
+  auto comp = [&](int i, int j) { return 4 * (sub + G * i) + j; };
+
+  int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  int nx_start = row < a.n_rows ? __ldg(a.rowptr + row) : 0;
+  int nx_end = row < a.n_rows ? __ldg(a.rowptr + row + 1) : 0;
+  for (; row < a.n_rows; row += nwarps) {
+    // the warp's next row's extent loads while this row is worked
+    const int start = nx_start, end = nx_end;
+    if (row + nwarps < a.n_rows) {
+      nx_start = __ldg(a.rowptr + row + nwarps);
+      nx_end = __ldg(a.rowptr + row + nwarps + 1);
+    }
+    const float* vpr = a.vp + static_cast<size_t>(row) * k;
+
+    // what depends on the receiver alone, computed at the row's first
+    // edge: sgd's vp row; lda's (vp + my_off - 1) / (extra + V(eta - 1));
+    // lda_loglik's phi
+    float rv[C];
+    float other_off = 0.0f;
+    bool ready = false;
+    auto receiver = [&]() {
+      bool is_doc = false;
+      if (OP == kLda) {
+        is_doc = __ldg(vpr + (k - 1)) > 0.5f;
+        other_off = is_doc ? a.s1 : a.s0;
+      }
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        const int c0 = comp(i, 0);
+        if (OP != kLdaInit && c0 < nc) {
+          if (a.vpvec) {
+            const float4 f =
+                __ldg(reinterpret_cast<const float4*>(vpr + c0));
+            v[0] = f.x;
+            v[1] = f.y;
+            v[2] = f.z;
+            v[3] = f.w;
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (c0 + j < nc) v[j] = __ldg(vpr + c0 + j);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = c0 + j;
+          float r = 0.0f;
+          if (c < nc) {
+            if (OP == kSgd || OP == kSgdSqerr) r = v[j];
+            if (OP == kLda)
+              r = ((v[j] + (is_doc ? a.s0 : a.s1)) - 1.0f) * s_cst[c];
+            if (OP == kLdaLoglik) r = (v[j] + a.s0) / s_cst[c];
+          }
+          rv[4 * i + j] = r;
+        }
+      }
+    };
+
+    float acc[C];
+    double dacc[C];   // lda_init's (the other ops leave it unused)
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      acc[q] = 0.0f;
+      dacc[q] = 0.0;
+    }
+    // acc[q] += t[q] * f, by one fused multiply-add in either mode
+    auto accumulate = [&](const float (&t)[C], float f) {
+#pragma unroll
+      for (int q = 0; q < C; ++q) acc[q] = __fmaf_rn(t[q], f, acc[q]);
+    };
+
+    // one edge of the group in two parts, the gather of sender s's row
+    // and the work on it with value v; `ok` is false on a slot past the
+    // batch, which computes on zeros and adds nothing.  Past nc a slot's
+    // rv is 0 and its x finite (x's pad is 0), so its terms in the in-row
+    // sums are 0; its acc is never written.
+    auto gather = [&](int s, bool ok, float (&xv)[C]) {
+      if (OP != kLdaInit) {
+        const float* xs = a.x + static_cast<size_t>(s) * a.ldx;
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          const int c0 = comp(i, 0);
+          if (a.xvec) {
+            float4 f = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            if (ok && c0 < nc)
+              f = __ldg(reinterpret_cast<const float4*>(xs + c0));
+            xv[4 * i] = f.x;
+            xv[4 * i + 1] = f.y;
+            xv[4 * i + 2] = f.z;
+            xv[4 * i + 3] = f.w;
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              xv[4 * i + j] = ok && c0 + j < nc ? __ldg(xs + c0 + j) : 0.0f;
+          }
+        }
+      }
+    };
+    auto work = [&](const float (&xv)[C], float v, bool ok) {
+      if (OP == kSgd || OP == kSgdSqerr) {
+        float t[C];
+#pragma unroll
+        for (int q = 0; q < C; ++q) t[q] = xv[q] * rv[q];
+        const float err = v - xor_sum(sum4<C>(t), 1, G);
+        if (ok) {
+          if (OP == kSgd) {
+            accumulate(xv, err);
+          } else {
+            acc[0] += err * err;
+          }
+        }
+      } else if (OP == kLdaInit) {
+        const uint32_t seed = static_cast<uint32_t>(static_cast<int>(v));
+        float g[C];
+#pragma unroll
+        for (int i = 0; i < V; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int c = comp(i, j);
+            g[4 * i + j] = c < nc ? rand_r_uniform(s_jmp[c].a * seed +
+                                                   s_jmp[c].c)
+                                  : 0.0f;
+          }
+        // lda_init runs once a run: its normaliser and sums are taken in
+        // double, rounded to float32 once at the row's end
+        double t = 0.0;
+#pragma unroll
+        for (int q = 0; q < C; ++q) t += g[q];
+        const double scale = v / xor_sum(t, 1, G);
+        if (ok) {
+#pragma unroll
+          for (int q = 0; q < C; ++q)
+            dacc[q] = fma(static_cast<double>(g[q]), scale, dacc[q]);
+        }
+      } else if (OP == kLda) {
+        float g[C];
+#pragma unroll
+        for (int q = 0; q < C; ++q)
+          g[q] = rv[q] * ((xv[q] + other_off) - 1.0f);
+        const float scale = v / xor_sum(sum4<C>(g), 1, G);
+        if (ok) {
+          accumulate(g, scale);
+        }
+      } else {  // kLdaLoglik
+        float th[C];
+#pragma unroll
+        for (int i = 0; i < V; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            th[4 * i + j] = comp(i, j) < nc ? xv[4 * i + j] + a.s0 : 0.0f;
+        const float th_tot = xor_sum(sum4<C>(th), 1, G);
+        float d[C];
+#pragma unroll
+        for (int q = 0; q < C; ++q) d[q] = rv[q] * (th[q] / th_tot);
+        const float dot = xor_sum(sum4<C>(d), 1, G);
+        if (ok) acc[0] += v * logf(dot);
+      }
+    };
+
+    // hand out n edges, the j-th of rank cnt + j going to group
+    // (cnt + j) mod NG: sender and value by fetch(j)
+    int cnt = 0;   // edges handed out so far (sent edges in the sparse mode)
+    auto hand_out = [&](int n, auto fetch) {
+      if (!ready) {
+        receiver();
+        ready = true;
+      }
+      int j = grp - cnt % NG;
+      if (j < 0) j += NG;
+      const int steps = (n + NG - 1) / NG;
+      for (int t = 0; t < steps; ++t, j += NG) {
+        const bool ok0 = j < n;
+        int s0;
+        float v0;
+        fetch(j, ok0, s0, v0);
+        float x0[C];
+        gather(s0, ok0, x0);
+        work(x0, v0, ok0);
+      }
+      cnt += n;
+    };
+    if (SPARSE) {
+      // a span of edges at a time (their col loaded with the span before):
+      // sent flags and (where sent) values load together, and the next
+      // span's col; the sent ones join the warp's buffer in
+      // order, which is handed out once it holds 32 or the row ends (one
+      // pass past the last span)
+      int q = 0;   // edges waiting in the buffer
+      int cl[kSparseSpan / 32];   // the span's senders, loaded a span ahead
+#pragma unroll
+      for (int b = 0; b < kSparseSpan / 32; ++b) {
+        const int e = start + 32 * b + lane;
+        cl[b] = e < end ? __ldg(a.col + e) : 0;
+      }
+      for (int base = start;; base += kSparseSpan) {
+        const bool last = base >= end;
+        if (!last) {
+          int nx_cl[kSparseSpan / 32];
+          float vl[kSparseSpan / 32];
+          bool on[kSparseSpan / 32];
+#pragma unroll
+          for (int b = 0; b < kSparseSpan / 32; ++b) {
+            const int e = base + kSparseSpan + 32 * b + lane;
+            nx_cl[b] = e < end ? __ldg(a.col + e) : 0;
+          }
+          // a value is read only for a sent edge
+#pragma unroll
+          for (int b = 0; b < kSparseSpan / 32; ++b) {
+            const int e = base + 32 * b + lane;
+            on[b] = e < end && __ldg(a.sent + cl[b]) != 0;
+            vl[b] = on[b] ? __ldg(a.val + e) : 0.0f;
+          }
+#pragma unroll
+          for (int b = 0; b < kSparseSpan / 32; ++b) {
+            const unsigned m = __ballot_sync(0xffffffffu, on[b]);
+            if (on[b]) {
+              const int pos = q + __popc(m & ((1u << lane) - 1u));
+              s_col[wib][pos] = cl[b];
+              s_val[wib][pos] = vl[b];
+            }
+            q += __popc(m);
+          }
+#pragma unroll
+          for (int b = 0; b < kSparseSpan / 32; ++b) cl[b] = nx_cl[b];
+        }
+        if (q >= 32 || (last && q > 0)) {
+          __syncwarp();
+          hand_out(q, [&](int j, bool ok, int& s, float& v) {
+            s = ok ? s_col[wib][j] : 0;
+            v = ok ? s_val[wib][j] : 0.0f;
+          });
+          q = 0;
+          __syncwarp();   // the buffer is refilled next
+        }
+        if (last) break;
+      }
+    } else {
+      // 64 edges at a time, lane l holding edges l and 32 + l; the next
+      // 64 load while these are worked
+      int cl[2];
+      float vl[2];
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        const int e = start + 32 * b + lane;
+        cl[b] = e < end ? __ldg(a.col + e) : 0;
+        vl[b] = e < end ? __ldg(a.val + e) : 0.0f;
+      }
+      for (int base = start; base < end; base += kDenseSpan) {
+        int nx_cl[2];
+        float nx_vl[2];
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          const int e = base + kDenseSpan + 32 * b + lane;
+          nx_cl[b] = e < end ? __ldg(a.col + e) : 0;
+          nx_vl[b] = e < end ? __ldg(a.val + e) : 0.0f;
+        }
+        hand_out(min(kDenseSpan, end - base),
+                 [&](int j, bool ok, int& s, float& v) {
+                   const int s0 = __shfl_sync(0xffffffffu, cl[0], j & 31);
+                   const int s1 = __shfl_sync(0xffffffffu, cl[1], j & 31);
+                   const float v0 = __shfl_sync(0xffffffffu, vl[0], j & 31);
+                   const float v1 = __shfl_sync(0xffffffffu, vl[1], j & 31);
+                   s = !ok ? 0 : j < 32 ? s0 : s1;
+                   v = !ok ? 0.0f : j < 32 ? v0 : v1;
+                 });
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          cl[b] = nx_cl[b];
+          vl[b] = nx_vl[b];
+        }
+      }
+    }
+    if (SPARSE && lane == 0) a.got[row] = cnt;
+
+    const bool scalar_out = OP == kSgdSqerr || OP == kLdaLoglik;
+    float* yr = a.y + static_cast<size_t>(row) * (scalar_out ? 1 : nc);
+    if (cnt == 0) {   // no (sent) edge: 0, the bits the tree would give
+      if (scalar_out) {
+        if (lane == 0) yr[0] = 0.0f;
+      } else {
+        for (int c = lane; c < nc; c += 32) yr[c] = 0.0f;
+      }
+      continue;
+    }
+    // the groups' partial sums meet in a fixed xor tree
+    if (scalar_out) {
+      const float r = xor_sum(acc[0], G, 32);
+      if (lane == 0) yr[0] = r;
+    } else {
+#pragma unroll
+      for (int q = 0; q < C; ++q) {
+        if (OP == kLdaInit)
+          acc[q] = static_cast<float>(xor_sum(dacc[q], G, 32));
+        else
+          acc[q] = xor_sum(acc[q], G, 32);
+      }
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const int c0 = comp(i, 0);
+        if (i % NG != grp || c0 >= nc) continue;   // one group per float4
+        if (a.yvec) {
+          *reinterpret_cast<float4*>(yr + c0) = make_float4(
+              acc[4 * i], acc[4 * i + 1], acc[4 * i + 2], acc[4 * i + 3]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (c0 + j < nc) yr[c0 + j] = acc[4 * i + j];
+        }
       }
     }
   }
+}
 
-  for (int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5; row < n_rows;
-       row += nwarps) {
-    const int start = __ldg(rowptr + row);
-    const int end = __ldg(rowptr + row + 1);
-    const size_t rk = static_cast<size_t>(row) * k;
+// ------------------------------------------------ slab kernel, width > 256
 
-    // what depends on the receiver alone
-    float rv[NPL];
+// One warp per receiver row walking its edges one at a time; lane holds
+// components c0 + lane + 32 t of the slab at c0.  Vector ops accumulate
+// in y's row (the warp owns it).
+template <int OP, bool SPARSE>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+k3_slabs(const Args a) {
+  const int lane = threadIdx.x & 31;
+  const int nwarps = (gridDim.x * blockDim.x) >> 5;
+  const int nc = a.nc;
+  const int k = a.k;
+  Jump jmp0[4] = {{1u, 0u}, {1u, 0u}, {1u, 0u}, {1u, 0u}};
+  Jump slab_step{1u, 0u};   // lda_init: jumps of components lane + 32 t,
+  if (OP == kLdaInit) {     // and the step from one slab to the next
 #pragma unroll
-    for (int i = 0; i < NPL; ++i) {
-      rv[i] = 0.0f;
-      if (OP != kLdaInit && live[i]) rv[i] = __ldg(vp + rk + lane + 32 * i);
+    for (int t = 0; t < 4; ++t)
+      jmp0[t] = lcg_jump(3u * static_cast<uint32_t>(lane + 32 * t));
+    slab_step = lcg_jump(3u * kSlab);
+  }
+
+  int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  int nx_start = row < a.n_rows ? __ldg(a.rowptr + row) : 0;
+  int nx_end = row < a.n_rows ? __ldg(a.rowptr + row + 1) : 0;
+  for (; row < a.n_rows; row += nwarps) {
+    // the warp's next row's extent loads while this row is worked
+    const int start = nx_start, end = nx_end;
+    if (row + nwarps < a.n_rows) {
+      nx_start = __ldg(a.rowptr + row + nwarps);
+      nx_end = __ldg(a.rowptr + row + nwarps + 1);
     }
-    float other_off = 0.0f;
+    const float* vpr = a.vp + static_cast<size_t>(row) * k;
+    float* yr = a.y + static_cast<size_t>(row) * nc;
+    const bool vector_out = OP == kSgd || OP == kLdaInit || OP == kLda;
+    if (vector_out)
+      for (int c = lane; c < nc; c += 32) yr[c] = 0.0f;
+    float my_off = 0.0f, other_off = 0.0f;
     if (OP == kLda) {
-      const bool is_doc = __ldg(vp + rk + (k - 1)) > 0.5f;
-      const float my_off = is_doc ? s0 : s1;
-      other_off = is_doc ? s1 : s0;
-#pragma unroll
-      for (int i = 0; i < NPL; ++i) rv[i] = (rv[i] + my_off) - 1.0f;
+      const bool is_doc = __ldg(vpr + (k - 1)) > 0.5f;
+      my_off = is_doc ? a.s0 : a.s1;
+      other_off = is_doc ? a.s1 : a.s0;
     }
-    if (OP == kLdaLoglik) {
-#pragma unroll
-      for (int i = 0; i < NPL; ++i)
-        if (live[i]) rv[i] = (rv[i] + s0) / ex[i];  // phi
-    }
+    float acc = 0.0f;
 
-    float acc[NPL];
-#pragma unroll
-    for (int i = 0; i < NPL; ++i) acc[i] = 0.0f;
-
-    // one edge: sender s, value v; the same code for both modes
+    // each op's per-component value: pass 1 sums it, pass 2 uses it
     auto edge = [&](int s, float v) {
-      const float* xs = x + static_cast<size_t>(s) * k + lane;
-      float xv[NPL];
+      const float* xs = a.x + static_cast<size_t>(s) * a.ldx;
+      const uint32_t seed = static_cast<uint32_t>(static_cast<int>(v));
+      // pass 1: the in-row sum
+      float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      Jump jm[4];
 #pragma unroll
-      for (int i = 0; i < NPL; ++i)
-        xv[i] = (OP != kLdaInit && live[i]) ? __ldg(xs + 32 * i) : 0.0f;
-
-      if (OP == kSgd || OP == kSgdSqerr) {
-        float d = 0.0f;
+      for (int t = 0; t < 4; ++t) jm[t] = jmp0[t];
+      for (int c0 = 0; c0 < nc; c0 += kSlab) {
 #pragma unroll
-        for (int i = 0; i < NPL; ++i) d += xv[i] * rv[i];
-        const float err = v - warp_sum(d);
-        if (OP == kSgd) {
-#pragma unroll
-          for (int i = 0; i < NPL; ++i) acc[i] += xv[i] * err;
-        } else {
-          acc[0] += err * err;
+        for (int t = 0; t < 4; ++t) {
+          const int c = c0 + lane + 32 * t;
+          if (c >= nc) continue;
+          if (OP == kSgd || OP == kSgdSqerr)
+            p[t] += __ldg(xs + c) * __ldg(vpr + c);
+          if (OP == kLdaInit) p[t] += rand_r_uniform(jm[t].a * seed + jm[t].c);
+          if (OP == kLda)
+            p[t] += (((__ldg(vpr + c) + my_off) - 1.0f) *
+                     (1.0f / (__ldg(a.extra + c) + a.s2))) *
+                    ((__ldg(xs + c) + other_off) - 1.0f);
+          if (OP == kLdaLoglik) p[t] += __ldg(xs + c) + a.s0;
         }
-      } else if (OP == kLdaInit || OP == kLda) {
-        float g[NPL];
-        float t = 0.0f;
+        if (OP == kLdaInit) {
 #pragma unroll
-        for (int i = 0; i < NPL; ++i) {
-          g[i] = 0.0f;
-          if (live[i]) {
-            if (OP == kLdaInit) {
-              const uint32_t seed =
-                  static_cast<uint32_t>(static_cast<int>(v));
-              g[i] = rand_r_uniform(jump_a[i] * seed + jump_c[i]);
-            } else {
-              g[i] = (rv[i] * ((xv[i] + other_off) - 1.0f)) / ex[i];
-            }
-          }
-          t += g[i];
+          for (int t = 0; t < 4; ++t)
+            jm[t] = Jump{slab_step.a * jm[t].a,
+                         slab_step.a * jm[t].c + slab_step.c};
         }
-        const float tot = warp_sum(t);
-#pragma unroll
-        for (int i = 0; i < NPL; ++i) acc[i] += (g[i] / tot) * v;
-      } else {  // kLdaLoglik
-        float th[NPL];
-        float t = 0.0f;
-#pragma unroll
-        for (int i = 0; i < NPL; ++i) {
-          th[i] = live[i] ? xv[i] + s0 : 0.0f;
-          t += th[i];
-        }
-        const float th_tot = warp_sum(t);
-        float d = 0.0f;
-#pragma unroll
-        for (int i = 0; i < NPL; ++i)
-          if (live[i]) d += rv[i] * (th[i] / th_tot);
-        acc[0] += v * logf(warp_sum(d));
       }
+      const float sum = warp_sum((p[0] + p[1]) + (p[2] + p[3]));
+      if (OP == kSgdSqerr) {
+        const float err = v - sum;
+        acc += err * err;
+        return;
+      }
+      // pass 2: the terms
+      const float err = v - sum;         // sgd
+      const float scale = v / sum;       // lda
+#pragma unroll
+      for (int t = 0; t < 4; ++t) jm[t] = jmp0[t];
+      float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      for (int c0 = 0; c0 < nc; c0 += kSlab) {
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const int c = c0 + lane + 32 * t;
+          if (c >= nc) continue;
+          if (OP == kSgd) yr[c] += __ldg(xs + c) * err;
+          if (OP == kLdaInit)
+            yr[c] += (rand_r_uniform(jm[t].a * seed + jm[t].c) / sum) * v;
+          if (OP == kLda)
+            yr[c] += ((((__ldg(vpr + c) + my_off) - 1.0f) *
+                       (1.0f / (__ldg(a.extra + c) + a.s2))) *
+                      ((__ldg(xs + c) + other_off) - 1.0f)) *
+                     scale;
+          if (OP == kLdaLoglik)
+            d[t] += ((__ldg(vpr + c) + a.s0) / __ldg(a.extra + c)) *
+                    ((__ldg(xs + c) + a.s0) / sum);
+        }
+        if (OP == kLdaInit) {
+#pragma unroll
+          for (int t = 0; t < 4; ++t)
+            jm[t] = Jump{slab_step.a * jm[t].a,
+                         slab_step.a * jm[t].c + slab_step.c};
+        }
+      }
+      if (OP == kLdaLoglik)
+        acc += v * logf(warp_sum((d[0] + d[1]) + (d[2] + d[3])));
     };
 
     int cnt = 0;
     for (int base = start; base < end; base += 32) {
       const int e = base + lane;
-      const int my_col = e < end ? __ldg(col + e) : 0;
-      const float my_val = e < end ? __ldg(val + e) : 0.0f;
+      const int my_col = e < end ? __ldg(a.col + e) : 0;
+      const float my_val = e < end ? __ldg(a.val + e) : 0.0f;
       if (SPARSE) {
         unsigned m = __ballot_sync(
-            0xffffffffu, e < end && __ldg(sent + my_col) != 0);
+            0xffffffffu, e < end && __ldg(a.sent + my_col) != 0);
         cnt += __popc(m);
         while (m != 0u) {   // m is the same in every lane
           const int j = __ffs(m) - 1;
@@ -257,61 +679,62 @@ spmv_vec2_kernel(const int* __restrict__ rowptr, const int* __restrict__ col,
                __shfl_sync(0xffffffffu, my_val, j));
       }
     }
-    if (SPARSE && lane == 0) got[row] = cnt;
-
-    if (OP == kSgdSqerr || OP == kLdaLoglik) {
-      if (lane == 0) y[row] = acc[0];  // every lane holds the same sum
-    } else {
-      float* yr = y + static_cast<size_t>(row) * nc + lane;
-#pragma unroll
-      for (int i = 0; i < NPL; ++i)
-        if (live[i]) yr[32 * i] = acc[i];
-    }
+    if (SPARSE && lane == 0) a.got[row] = cnt;
+    if (!vector_out && lane == 0) a.y[row] = acc;
   }
 }
 
-struct Args {
-  const int* rowptr;
-  const int* col;
-  const float* val;
-  const float* x;
-  const float* vp;
-  const float* extra;
-  const uint8_t* sent;
-  float* y;
-  int* got;
-  int n_rows, k;
-  float s0, s1, s2;
-};
-
-template <int OP, int NPL, bool SPARSE>
-void launch(dim3 grid, cudaStream_t st, const Args& a) {
-  spmv_vec2_kernel<OP, NPL, SPARSE><<<grid, kWarpsPerBlock * 32, 0, st>>>(
-      a.rowptr, a.col, a.val, a.x, a.vp, a.extra, a.sent, a.y, a.got,
-      a.n_rows, a.k, a.s0, a.s1, a.s2);
+// One wave of blocks, as many as the card holds at once for this kernel
+// (none past a warp per row): each warp walks rows row, row + warps, ...
+// with the next row's extent in flight.
+// The blocks of one wave are counted once per kernel (one card a process).
+template <void (*Kernel)(Args)>
+void launch_wave(cudaStream_t st, const Args& a) {
+  static long long wave = 0;
+  if (wave == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel,
+                                                  kWarpsPerBlock * 32, 0);
+    wave = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  }
+  const long long need = (a.n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const dim3 grid(static_cast<unsigned>(need < wave ? need : wave));
+  Kernel<<<grid, kWarpsPerBlock * 32, 0, st>>>(a);
 }
 
+template <int OP, int G, int V, bool SPARSE>
+void launch_lanes(cudaStream_t st, const Args& a) {
+  launch_wave<k3_lanes<OP, G, V, SPARSE>>(st, a);
+}
+
+// layout: 1 and 2 for one lane an edge with that many float4s, 3-7 for
+// 2, 4, 8, 16 and 32 lanes an edge with 2 float4s each, 0 for the slab
+// kernel
 template <int OP, bool SPARSE>
-bool launch_width(int npl, dim3 grid, cudaStream_t st, const Args& a) {
-  switch (npl) {
-    case 1: launch<OP, 1, SPARSE>(grid, st, a); return true;
-    case 2: launch<OP, 2, SPARSE>(grid, st, a); return true;
-    case 3: launch<OP, 3, SPARSE>(grid, st, a); return true;
-    case 4: launch<OP, 4, SPARSE>(grid, st, a); return true;
-    case 5: launch<OP, 5, SPARSE>(grid, st, a); return true;
+bool launch_op(int layout, cudaStream_t st, const Args& a) {
+  switch (layout) {
+    case 0: launch_wave<k3_slabs<OP, SPARSE>>(st, a); return true;
+    case 1: launch_lanes<OP, 1, 1, SPARSE>(st, a); return true;
+    case 2: launch_lanes<OP, 1, 2, SPARSE>(st, a); return true;
+    case 3: launch_lanes<OP, 2, 2, SPARSE>(st, a); return true;
+    case 4: launch_lanes<OP, 4, 2, SPARSE>(st, a); return true;
+    case 5: launch_lanes<OP, 8, 2, SPARSE>(st, a); return true;
+    case 6: launch_lanes<OP, 16, 2, SPARSE>(st, a); return true;
+    case 7: launch_lanes<OP, 32, 2, SPARSE>(st, a); return true;
   }
   return false;
 }
 
 template <bool SPARSE>
-bool launch_op(int op, int npl, dim3 grid, cudaStream_t st, const Args& a) {
+bool launch_mode(int op, int layout, cudaStream_t st, const Args& a) {
   switch (op) {
-    case kSgd: return launch_width<kSgd, SPARSE>(npl, grid, st, a);
-    case kSgdSqerr: return launch_width<kSgdSqerr, SPARSE>(npl, grid, st, a);
-    case kLdaInit: return launch_width<kLdaInit, SPARSE>(npl, grid, st, a);
-    case kLda: return launch_width<kLda, SPARSE>(npl, grid, st, a);
-    case kLdaLoglik:
-      return launch_width<kLdaLoglik, SPARSE>(npl, grid, st, a);
+    case kSgd: return launch_op<kSgd, SPARSE>(layout, st, a);
+    case kSgdSqerr: return launch_op<kSgdSqerr, SPARSE>(layout, st, a);
+    case kLdaInit: return launch_op<kLdaInit, SPARSE>(layout, st, a);
+    case kLda: return launch_op<kLda, SPARSE>(layout, st, a);
+    case kLdaLoglik: return launch_op<kLdaLoglik, SPARSE>(layout, st, a);
   }
   return false;
 }
@@ -320,20 +743,20 @@ bool launch_op(int op, int npl, dim3 grid, cudaStream_t st, const Args& a) {
 
 // One launch of K3.  op: 0 sgd, 1 sgd_sqerr, 2 lda_init, 3 lda,
 // 4 lda_loglik.  k is the row width of x and vp (for lda the topics plus
-// the flag column), at most 160.  vp may be null for lda_init, extra for
-// the ops other than lda and lda_loglik.  y holds n_rows rows of the op's
-// output width.  sent (one byte per sender) and got (one int32 per row)
-// are both null for the dense mode and both given for the sparse mode.
-// Returns cudaGetLastError(), or cudaErrorInvalidValue for arguments the
-// kernel does not take.
+// the flag column); x's rows are ldx >= k floats apart, vp's k.  vp may be
+// null for lda_init, extra for the ops other than lda and lda_loglik.  y
+// holds n_rows rows of the op's output width.  sent (one byte per sender)
+// and got (one int32 per row) are both null for the dense mode and both
+// given for the sparse mode.  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for arguments the kernel does not take.
 extern "C" int gm_spmv_vec2(const void* rowptr, const void* col,
                             const void* val, const void* x, const void* vp,
                             const void* extra, const void* sent, void* y,
-                            void* got, int n_rows, int k, int op, float s0,
-                            float s1, float s2, void* stream) {
+                            void* got, int n_rows, int k, int ldx, int op,
+                            float s0, float s1, float s2, void* stream) {
   const int nc = op == kLda ? k - 1 : k;
-  if (n_rows <= 0 || nc < 1 || k > 32 * kMaxPerLane || op < kSgd ||
-      op > kLdaLoglik)
+  if (n_rows <= 0 || nc < 1 || ldx < k || op < kSgd || op > kLdaLoglik ||
+      k > 0x7fffffff - kSlab)
     return static_cast<int>(cudaErrorInvalidValue);
   if (op != kLdaInit && vp == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -341,12 +764,19 @@ extern "C" int gm_spmv_vec2(const void* rowptr, const void* col,
     return static_cast<int>(cudaErrorInvalidValue);
   if ((sent == nullptr) != (got == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int npl = (nc + 31) / 32;
-  // a warp per row up to 2^23 rows; beyond that the warps stride over rows
-  int blocks = (n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (blocks > (1 << 20)) blocks = 1 << 20;
-  const dim3 grid(blocks);
+  // the register layout: one lane an edge with ceil(nc / 4) float4s up
+  // to 8 components, then the fewest lanes (2, 4, ..., 32) with 2 float4s
+  // each; wider rows: the slab kernel
+  int layout = nc <= 4 * kMaxV ? (nc + 3) / 4 : 0;
+  for (int g = 2, l = 3; layout == 0 && g <= kMaxG; g <<= 1, ++l)
+    if (nc <= 4 * kMaxV * g) layout = l;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool xvec = ldx % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool vpvec = k % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(vp) % 16 == 0;
+  const bool yvec = nc % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(y) % 16 == 0;
   const Args a{static_cast<const int*>(rowptr),
                static_cast<const int*>(col),
                static_cast<const float*>(val),
@@ -356,9 +786,10 @@ extern "C" int gm_spmv_vec2(const void* rowptr, const void* col,
                static_cast<const uint8_t*>(sent),
                static_cast<float*>(y),
                static_cast<int*>(got),
-               n_rows, k, s0, s1, s2};
-  const bool ok = sent != nullptr ? launch_op<true>(op, npl, grid, st, a)
-                                  : launch_op<false>(op, npl, grid, st, a);
+               n_rows, k, ldx, nc, xvec, vpvec, yvec, s0, s1, s2};
+  const bool ok = sent != nullptr
+                      ? launch_mode<true>(op, layout, st, a)
+                      : launch_mode<false>(op, layout, st, a);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

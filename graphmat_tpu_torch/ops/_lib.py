@@ -109,8 +109,8 @@ def load() -> ctypes.CDLL:
     lib.gm_aux_gather.argtypes = [p, p, p, ctypes.c_longlong, i, p]
     lib.gm_aux_gather.restype = i
     f = ctypes.c_float
-    lib.gm_spmv_vec2.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, f, f,
-                                 f, p]
+    lib.gm_spmv_vec2.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, f,
+                                 f, f, p]
     lib.gm_spmv_vec2.restype = i
     lib.gm_error_string.argtypes = [i]
     lib.gm_error_string.restype = ctypes.c_char_p

@@ -21,7 +21,10 @@ works on gathered per-edge rows:
 ``params`` carries the ops' scalars (``alpha``, ``eta``, ``vocab_size``).
 
 :func:`spmv_vec_csr` launches ``graphmat_tpu_torch/csrc/spmv_vec2.cu`` on
-CUDA tensors and runs :func:`spmv_vec_csr_reference` on CPU tensors.
+CUDA tensors and runs :func:`spmv_vec_csr_reference` on CPU tensors.  Any
+width runs that int32 component indices address (:data:`MAX_WIDTH`): the
+kernel keeps up to 256 components of an edge in registers and loops over
+slabs of wider rows.
 :func:`spmv_vec` is the graph-level entry; it reads the CSR's own senders
 (``csr.col``), also on a CSR that K1 compacts: K3 needs no compaction
 while its operand sits in the H100's L2.
@@ -34,11 +37,15 @@ import torch
 from ..utils.reference_rng import RAND_MAX, rand_r_torch
 from . import _lib
 
-__all__ = ["VEC_PROCESS_OPS", "K_MAX", "out_width", "spmv_vec",
+__all__ = ["VEC_PROCESS_OPS", "MAX_WIDTH", "out_width", "spmv_vec",
            "spmv_vec_reference", "spmv_vec_csr", "spmv_vec_csr_reference",
            "LAUNCHES"]
 
-K_MAX = 160          # the kernel's bound on the row width (5 per lane)
+# the widest row the kernel's int32 component indices address (its slab
+# loop steps 128 components past the last)
+MAX_WIDTH = 2 ** 31 - 1 - 128
+# the most edges its int32 edge indices address past a row's last span
+MAX_EDGES = 2 ** 31 - 1 - 256
 REF_CHUNK = 1 << 22  # edges per step of the plain version (bounds memory)
 
 
@@ -125,9 +132,11 @@ def check(rowptr, col, val, x, op, vp, extra, params):
     if x.dim() != 2:
         raise ValueError("x must be [n_send, K]")
     k = x.shape[1]
-    if out_width(op, k) < 1 or k > K_MAX:
-        raise ValueError(f"K={k} is outside what {op!r} takes "
-                         f"(at most {K_MAX} columns)")
+    if out_width(op, k) < 1:
+        raise ValueError(f"K={k} is outside what {op!r} takes")
+    if k > MAX_WIDTH:
+        raise ValueError(f"K={k} is past what int32 component indices "
+                         f"address (at most {MAX_WIDTH} columns)")
     need = [(rowptr, torch.int32, 1, "rowptr"), (col, torch.int32, 1, "col"),
             (val, torch.float32, 1, "val"), (x, torch.float32, 2, "x")]
     if op in _NEEDS_VP:
@@ -148,6 +157,9 @@ def check(rowptr, col, val, x, op, vp, extra, params):
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
     if val.shape != col.shape:
         raise ValueError("val must hold one value per edge")
+    if col.numel() > MAX_EDGES:
+        raise ValueError(f"{col.numel()} edges are past what int32 edge "
+                         f"indices address (at most {MAX_EDGES})")
     if rowptr.numel() < 1:
         raise ValueError("rowptr needs n_rows + 1 entries")
     if op in _NEEDS_VP and vp.shape != (rowptr.numel() - 1, k):
@@ -199,20 +211,25 @@ def _scalars(op, params):
 def launch(rowptr, col, val, x, op, vp, extra, params, sent=None):
     """One launch of ``csrc/spmv_vec2.cu`` on checked CUDA tensors: the
     dense mode, or with ``sent`` the sparse mode, which returns
-    ``(y, got)``.  The callers count the launch."""
+    ``(y, got)``.  The callers count the launch.  Where x's width is not a
+    multiple of 4, x is first copied into rows of the next multiple of 4
+    (zeros after), so that the kernel gathers a row with 16-byte loads."""
     n_rows = rowptr.numel() - 1
-    y = torch.empty((n_rows, out_width(op, x.shape[1])),
+    k = x.shape[1]
+    y = torch.empty((n_rows, out_width(op, k)),
                     dtype=torch.float32, device=x.device)
     got = (torch.empty(n_rows, dtype=torch.int32, device=x.device)
            if sent is not None else None)
     if n_rows > 0:
+        if k % 4 and op != "lda_init":
+            x = torch.nn.functional.pad(x, (0, -k % 4))
         lib = _lib.load()
         rc = lib.gm_spmv_vec2(
             rowptr.data_ptr(), col.data_ptr(), val.data_ptr(), x.data_ptr(),
             vp.data_ptr() if op in _NEEDS_VP else None,
             extra.data_ptr() if extra is not None else None,
             sent.data_ptr() if sent is not None else None, y.data_ptr(),
-            got.data_ptr() if got is not None else None, n_rows,
+            got.data_ptr() if got is not None else None, n_rows, k,
             x.shape[1], _OP_CODE[op], *_scalars(op, params),
             torch.cuda.current_stream(x.device).cuda_stream)
         _lib.check(lib, rc, "spmv_vec2")

@@ -153,32 +153,96 @@ def _k3_inputs(op, k, n, device, seed=3):
     return t(x), t(vp), t(rng.uniform(100, 200, k))
 
 
-def _check_k3(csr, op, k, device, init_rtol=1e-6):
+def _row_rtol(op, k, deg, long_rows):
+    """The sum bound's share of Σ|terms|: 1e-5, and 1e-6 for lda_init at
+    the widths of up to 40 (its terms are the same rand_r draws).  Where
+    rows are long (the row-length graph), or lda_init's normaliser sums
+    more than 40 terms, float32 summation itself: a row's sum of deg terms
+    in the kernel's order and in index_add_'s (which changes from run to
+    run on CUDA) errs by up to (deg - 1) units each, and lda_init's K-term
+    normaliser by up to K units each, as ``chip_smoke.py`` bounds them."""
+    u = 2.0 ** -24
+    rtol = 1e-6 if op == "lda_init" else 1e-5
+    sums = 2 * (deg.float()[:, None] - 1).clamp(min=0) * u
+    if op == "lda_init" and k > 40:
+        return torch.clamp(sums + 2 * k * u, min=rtol)
+    return torch.clamp(sums, min=rtol) if long_rows else rtol
+
+
+def _dot_sensitivity(op, xe, vpe, val):
+    """The K-term dot <x, vp_r> is summed in other orders too: a term moves
+    by its sensitivity to the dot times K units of Σ|x vp|, beyond 1e-5 of
+    the term where val - <x, vp_r> nearly cancels (held so at the widths
+    past 40 and on the row-length graph, as in the sparse mode's test)."""
+    dot = (xe * vpe).abs().sum(1, keepdim=True)
+    err = (val - (xe * vpe).sum(1)).abs()[:, None]
+    return dot * (xe.abs() if op == "sgd" else 2 * err)
+
+
+def _check_k3(csr, op, k, device, init_rtol=None, long_rows=False):
     x, vp, extra = _k3_inputs(op, k, csr.n_send, device)
     before = spmv_vec2.LAUNCHES[op]
     out = spmv_vec2.spmv_vec(csr, x, op, vp=vp, extra=extra,
                              params=K3_PARAMS)
     torch.cuda.synchronize()
     assert spmv_vec2.LAUNCHES[op] == before + 1
+    # no atomics, edge order per lane, a fixed tree: the same bits again
+    assert torch.equal(out, spmv_vec2.spmv_vec(csr, x, op, vp=vp,
+                                               extra=extra, params=K3_PARAMS))
     ref = spmv_vec2.spmv_vec_reference(csr, x, op, vp=vp, extra=extra,
                                        params=K3_PARAMS)
     assert out.shape == ref.shape
     assert bool((out[csr.rowptr.diff() == 0] == 0).all())
     col, row = csr.col.long(), csr.row.long()
-    terms = spmv_vec2.VEC_PROCESS_OPS[op](
-        x[col], csr.val_f32, vp[row] if vp is not None else None, extra,
-        K3_PARAMS).abs()
-    rtol = init_rtol if op == "lda_init" else 1e-5
+    vpe = vp[row] if vp is not None else None
+    terms = spmv_vec2.VEC_PROCESS_OPS[op](x[col], csr.val_f32, vpe, extra,
+                                          K3_PARAMS).abs()
+    if op in ("sgd", "sgd_sqerr") and (long_rows or k > 40):
+        terms += _dot_sensitivity(op, x[col], vpe, csr.val_f32)
+    rtol = _row_rtol(op, k, csr.rowptr.diff(), long_rows)
+    if op == "lda_init" and init_rtol is not None:
+        rtol = init_rtol
     bound = torch.zeros_like(out).index_add_(0, row, terms) * rtol
     assert bool(((out - ref).abs() <= bound).all())
     return out
 
 
-@pytest.mark.parametrize("k", [1, 20, 40])
+# one lane an edge (K = 1, 4), lane groups of 4 to 32 (K = 20 to 200; 160
+# was the parent kernel's bound), and the slab kernel past 256 columns
+K3_WIDTHS = [1, 4, 20, 40, 96, 161, 200, 513]
+
+
+@pytest.mark.parametrize("k", K3_WIDTHS)
 @pytest.mark.parametrize("op", K3_OPS)
 def test_spmv_vec2_kernel_matches_plain(cuda, op, k):
     _check_k3(_ratings_graph(cuda, build_in_edges=False).csr("dst"), op, k,
               cuda)
+
+
+@functools.lru_cache(maxsize=None)
+def _row_length_csr():
+    """Receiver rows of 0, 1, 31, 32, 33 and 2^16 edges (distinct random
+    senders, integer counts), with empty rows between them."""
+    rng = np.random.default_rng(8)
+    n, src, dst, recv = 1 << 17, [], [], 1
+    for length, count in ((1, 300), (31, 40), (32, 40), (33, 40),
+                          (1 << 16, 1)):
+        for _ in range(count):
+            src.append(1 + rng.permutation(n)[:length])
+            dst.append(np.full(length, recv))
+            recv += 2
+    src, dst = np.concatenate(src), np.concatenate(dst)
+    e = gt.edgelist_from_arrays(src, dst, rng.integers(1, 6, len(src)).astype(
+        np.float32), m=n, n=n)
+    return gt.Graph(e, device="cuda", build_in_edges=False).csr("dst")
+
+
+@pytest.mark.parametrize("k", [4, 20, 161])
+@pytest.mark.parametrize("op", K3_OPS)
+def test_spmv_vec2_kernel_on_row_lengths(cuda, op, k):
+    """Row ends inside and at a warp's batch of 32 edges, and one row of
+    2^16 edges on one warp; empty rows exactly 0."""
+    _check_k3(_row_length_csr(), op, k, cuda, long_rows=True)
 
 
 def test_spmv_vec2_kernel_without_edges(cuda):
@@ -263,14 +327,25 @@ def test_lda_on_cuda_matches_cpu(cuda, k, permute):
 
 
 @pytest.mark.parametrize("share", [1.0, 0.1, 0.01, 0.0])
-@pytest.mark.parametrize("k", [1, 20, 40])
+@pytest.mark.parametrize("k", K3_WIDTHS)
 @pytest.mark.parametrize("op", K3_OPS)
 def test_spmv_vec_sparse_kernel_matches_plain(cuda, op, k, share):
     """The sparse mode against its plain version: the count exactly, a
     row without a sent edge exactly 0, sums within 1e-5 of the row's
     Σ|terms| over sent edges (1e-6 for lda_init); with every sender sent,
     the dense mode's bits."""
-    csr = _ratings_graph(cuda, build_in_edges=False).csr("dst")
+    _check_k3_sparse(_ratings_graph(cuda, build_in_edges=False).csr("dst"),
+                     op, k, share, cuda)
+
+
+@pytest.mark.parametrize("share", [1.0, 0.1])
+@pytest.mark.parametrize("k", [4, 20, 161])
+@pytest.mark.parametrize("op", K3_OPS)
+def test_spmv_vec_sparse_kernel_on_row_lengths(cuda, op, k, share):
+    _check_k3_sparse(_row_length_csr(), op, k, share, cuda, long_rows=True)
+
+
+def _check_k3_sparse(csr, op, k, share, cuda, long_rows=False):
     x, vp, extra = _k3_inputs(op, k, csr.n_send, cuda)
     gen = torch.Generator(device=cuda)
     gen.manual_seed(4)
@@ -281,6 +356,9 @@ def test_spmv_vec_sparse_kernel_matches_plain(cuda, op, k, share):
     out, got = spmv_vec.spmv_vec_sparse(csr, x, op, sent, **kw)
     torch.cuda.synchronize()
     assert spmv_vec.LAUNCHES[op] == before + 1
+    # sent edges handed out by rank, no atomics: the same bits again
+    again, got_again = spmv_vec.spmv_vec_sparse(csr, x, op, sent, **kw)
+    assert torch.equal(out, again) and torch.equal(got, got_again)
     ref, got_ref = spmv_vec.spmv_vec_sparse_reference(csr, x, op, sent, **kw)
     assert torch.equal(got, got_ref)
     assert bool((out[got == 0] == 0).all())
@@ -289,14 +367,9 @@ def test_spmv_vec_sparse_kernel_matches_plain(cuda, op, k, share):
     terms = spmv_vec2.VEC_PROCESS_OPS[op](x[col], csr.val_f32, vpe, extra,
                                           K3_PARAMS).abs()
     if op in ("sgd", "sgd_sqerr"):
-        # the K-term dot <x, vp_r> is summed in other orders too: a term
-        # moves by its sensitivity to the dot times K units of Σ|x vp|,
-        # beyond 1e-5 of the term where val - <x, vp_r> nearly cancels
-        dot = (x[col] * vpe).abs().sum(1, keepdim=True)
-        err = (csr.val_f32 - (x[col] * vpe).sum(1)).abs()[:, None]
-        terms += dot * (x[col].abs() if op == "sgd" else 2 * err)
+        terms += _dot_sensitivity(op, x[col], vpe, csr.val_f32)
     terms = terms * sent[col][:, None]
-    rtol = 1e-6 if op == "lda_init" else 1e-5
+    rtol = _row_rtol(op, k, got, long_rows)
     bound = torch.zeros_like(out).index_add_(0, row, terms) * rtol
     assert bool(((out - ref).abs() <= bound).all())
     if share == 1.0:

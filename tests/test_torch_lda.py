@@ -32,7 +32,8 @@ def edges(seed=11):
 
 
 @pytest.mark.parametrize("k,permute", [(4, False), (40, False),
-                                       (4, "degree")])
+                                       (4, "degree"), (160, False),
+                                       (200, False)])
 def test_run_lda_matches_jax(k, permute):
     e = edges()
     gtx = gt.Graph(e, permute=permute, device="cpu")

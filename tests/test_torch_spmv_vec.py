@@ -47,11 +47,11 @@ _G = gt.Graph(gt.EdgeList(_E.m, _E.n, _E.src, _E.dst, VAL),
 CSR = _G.csr("dst")
 
 
-def inputs(op, seed=5):
+def inputs(op, seed=5, k=K):
     """x [N, w], vp [N, w] (or None), extra (or None) for ``op``, as in
     ``test_torch_spmv_vec2.py``."""
     rng = np.random.default_rng(seed)
-    w = K + 1 if op == "lda" else K
+    w = k + 1 if op == "lda" else k
     if op in ("sgd", "sgd_sqerr"):
         return (0.3 * rng.standard_normal((N, w))).astype(np.float32), \
             (0.3 * rng.standard_normal((N, w))).astype(np.float32), None
@@ -60,10 +60,10 @@ def inputs(op, seed=5):
     x = rng.uniform(0.5, 5, (N, w)).astype(np.float32)
     vp = rng.uniform(0.5, 5, (N, w)).astype(np.float32)
     if op == "lda":
-        x[:, K] = 0.0
-        vp[:, K] = np.arange(N) < N // 2   # the is_doc column
-        return x, vp, rng.uniform(50, 100, K).astype(np.float32)
-    return x, vp, rng.uniform(100, 200, K).astype(np.float32)
+        x[:, k] = 0.0
+        vp[:, k] = np.arange(N) < N // 2   # the is_doc column
+        return x, vp, rng.uniform(50, 100, k).astype(np.float32)
+    return x, vp, rng.uniform(100, 200, k).astype(np.float32)
 
 
 def sent_mask(share, seed=3):
@@ -75,8 +75,8 @@ def _pad(a):
                                   + ((0, 0),) * (a.ndim - 1)))
 
 
-def port_sparse(op, sent):
-    x, vp, extra = inputs(op)
+def port_sparse(op, sent, k=K):
+    x, vp, extra = inputs(op, k=k)
     y, got = sv.spmv_vec_sparse(
         CSR, _pad(x), op, _pad(sent.astype(np.uint8)),
         vp=_pad(vp) if vp is not None else None,
@@ -85,34 +85,41 @@ def port_sparse(op, sent):
     return y[:N].numpy(), got[:N].numpy()
 
 
-def jax_terms(op):
+def port_dense(op, k):
+    x, vp, extra = inputs(op, k=k)
+    y = spmv_vec2.spmv_vec(
+        CSR, _pad(x), op, vp=_pad(vp) if vp is not None else None,
+        extra=torch.as_tensor(extra) if extra is not None else None,
+        params=PARAMS)
+    return y[:N].numpy()
+
+
+def jax_terms(op, k=K):
     """Each edge's contribution by the JAX programs' own process_message
     (the XLA path), [nnz, columns]."""
-    x, vp, extra = inputs(op)
+    x, vp, extra = inputs(op, k=k)
     xe, vpe = jnp.asarray(x[S0]), None if vp is None else jnp.asarray(vp[R0])
     v = jnp.asarray(VAL)
     if op == "sgd":
-        u = jsgd.SGDProgram(k=K).process_message(None, xe, v, {"lv": vpe})
+        u = jsgd.SGDProgram(k=k).process_message(None, xe, v, {"lv": vpe})
     elif op == "sgd_sqerr":
-        u = jsgd.RMSEProgram(k=K).process_message(None, xe, v, {"lv": vpe})
+        u = jsgd.RMSEProgram(k=k).process_message(None, xe, v, {"lv": vpe})
     elif op == "lda_init":
-        u = jlda.LDAInitProgram(K).process_message(None, xe, v, None)
+        u = jlda.LDAInitProgram(k).process_message(None, xe, v, None)
     elif op == "lda":
-        prog = jlda.LDAProgram(K, ALPHA, ETA, vocab_size=VOCAB, ndoc=1)
-        u = prog.process_message(jnp.asarray(extra), {"N": xe[:, :K]}, v,
-                                 {"N": vpe[:, :K], "is_doc": vpe[:, K] > 0.5})
+        prog = jlda.LDAProgram(k, ALPHA, ETA, vocab_size=VOCAB, ndoc=1)
+        u = prog.process_message(jnp.asarray(extra), {"N": xe[:, :k]}, v,
+                                 {"N": vpe[:, :k], "is_doc": vpe[:, k] > 0.5})
     else:
         # nterms = 0: the program's smoothed totals are extra itself
-        prog = jlda.LDALLProgram(extra, ETA, 0, k=K)
+        prog = jlda.LDALLProgram(extra, ETA, 0, k=k)
         u = prog.process_message(None, {"N": xe}, v, {"N": vpe})
     return u.reshape(len(S0), -1)
 
 
-@pytest.mark.parametrize("share", SHARES)
-@pytest.mark.parametrize("op", OPS)
-def test_sparse_plain_matches_jax_xla(op, share):
-    sent = sent_mask(share)
-    u = jax_terms(op)
+def xla_sums(u, sent):
+    """The JAX segment reduce of the terms of the sent edges, and each
+    row's Σ|terms| over them."""
     e_ok = jnp.asarray(sent[S0])
     want = np.asarray(segment_reduce_tree(
         SUM, masked_fill_identity(SUM, u, e_ok), jnp.asarray(R0), N,
@@ -120,6 +127,35 @@ def test_sparse_plain_matches_jax_xla(op, share):
     bound = np.zeros(want.shape)
     np.add.at(bound, R0, np.abs(np.asarray(u, np.float64))
               * sent[S0][:, None])
+    return want, bound
+
+
+@pytest.mark.parametrize("mode", ["dense", "sparse"])
+@pytest.mark.parametrize("k", [161, 200])
+@pytest.mark.parametrize("op", OPS)
+def test_wide_plain_matches_jax_xla(op, k, mode):
+    """Rows wider than 160 columns (the parent kernel's bound): the plain
+    dense and sparse versions against the JAX programs' ⊗ through the XLA
+    segment reduce, each row within 1e-5 of its Σ|terms|."""
+    sent = sent_mask(1.0 if mode == "dense" else 0.3)
+    want, bound = xla_sums(jax_terms(op, k), sent)
+    if mode == "dense":
+        y = port_dense(op, k)
+    else:
+        y, got = port_sparse(op, sent, k)
+        np.testing.assert_array_equal(got, np.bincount(
+            R0, weights=sent[S0], minlength=N).astype(np.int32))
+    assert y.shape == want.shape == (N, spmv_vec2.out_width(
+        op, k + 1 if op == "lda" else k))
+    assert np.all(np.abs(y - want) <= 1e-5 * bound + 1e-30)
+
+
+@pytest.mark.parametrize("share", SHARES)
+@pytest.mark.parametrize("op", OPS)
+def test_sparse_plain_matches_jax_xla(op, share):
+    sent = sent_mask(share)
+    e_ok = jnp.asarray(sent[S0])
+    want, bound = xla_sums(jax_terms(op), sent)
     y, got = port_sparse(op, sent)
     assert y.shape == want.shape
     assert np.all(np.abs(y - want) <= 1e-5 * bound + 1e-30)
