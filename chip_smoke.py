@@ -20,18 +20,26 @@ raises and the script exits non-zero:
 3. each kernel against its plain PyTorch version on a seeded RMAT graph
    of about 1M edges: K1 (the SpMV) for sum, min and max, for each ⊗,
    dense, sparse and sparse with the got count; K2 (the compaction
-   gather) for float32 and uint8;
+   gather), value-only and fused with the sent flags, bitwise, on a real
+   position map and at 1, 3, 4, 5 and 2^20 + 3 positions over an operand
+   with NaN payloads, -0.0 and +-inf;
 4. the golden file: the PageRank CLI on ``data/test.bin.mtx`` against the
    reference binary's output in ``tests/golden/pagerank_test.txt``;
 5. the slice at full size: RMAT scale 22, edge factor 16, seed 1, built
    and deduplicated on the card, a degree-permuted Graph with compaction
-   on, ``run_pagerank`` to convergence; the launch counts of both kernels
-   over that run; the result against a float64 PageRank computed on the
-   host with ``scipy.sparse`` for the same number of iterations;
+   on (``compact=True``), ``run_pagerank`` to convergence; the launch
+   counts of both kernels over that run (one K2 launch for each K1
+   call); the result against a float64 PageRank computed on the host
+   with ``scipy.sparse`` for the same number of iterations;
 6. timings on that graph, from CUDA events: a dense PageRank step on the
-   kernel path (and its torch.profiler breakdown), on the plain path and
-   with compaction off; each kernel alone at the slice's shapes beside
-   its plain version; GTEPS and peak device memory;
+   kernel path (and its torch.profiler breakdown, with its device
+   copies), on the plain path and with compaction off, in interleaved
+   rounds; each kernel alone at the slice's shapes beside its plain
+   version (K2 value-only and fused); GTEPS and peak device memory; and
+   ``k2_diagnosis``: K2's and ``index_select``'s spread within the call
+   (single launches and a burst), and what compaction costs one SpMV
+   (the operand's preparation, K1 alone and the whole ``spmv`` on the
+   compacted and the uncompacted CSR, dense and sparse with got);
 7. K3 (the K-wide three-operand SpMV) against its plain version on a
    seeded bipartite graph of 1M ratings, for every op at K = 1, 4, 20,
    40, 96, 161, 200 and 513 (past 256 columns the slab kernel), and at
@@ -96,7 +104,18 @@ raises and the script exits non-zero:
     launch count over those runs; timings from CUDA events: the sparse
     mode alone at each share beside dense K3 and its plain version, the
     ACTIVE_ONLY step at each frontier, K5's function alone beside its
-    plain version and cuSPARSE, peak device memory.
+    plain version and cuSPARSE, peak device memory;
+18. compaction above L2: RMAT scale 24, edge factor 16, seed 1 (about
+    263M edges, a 67 MB operand against the card's 50 MB L2), built on
+    the card and degree-permuted, its dst direction once compacted
+    (``compact=True``) and once as the card's ``compact="auto"`` leaves
+    it (uncompacted, at this scale and at RMAT-22; phase 6 builds
+    RMAT-22 so too); PageRank to convergence on both (the same
+    iteration count, the vectors bitwise equal), K1 on both bitwise
+    equal (dense sum, sparse with got); timings in interleaved rounds:
+    the PageRank step (and its torch.profiler breakdown, on and off),
+    what compaction costs one SpMV (as phase 6), K2 alone; peak device
+    memory.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Phase numbers given as arguments run
@@ -145,6 +164,11 @@ MOVIELENS_25M = dict(users=162_541, items=59_047, ratings=25_000_095)
 NYTIMES = dict(docs=300_000, terms=102_660, entries=69_679_427)
 RAND_MAX = 2 ** 31 - 1
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
+# K2's odd counts (phase 3), and the bit patterns of x's senders 0-7
+# there: quiet and signalling NaNs with payloads, -0.0, +-inf, a denormal
+K2_COUNTS = (1, 3, 4, 5, (1 << 20) + 3)
+K2_SPECIALS = (0x7FC00001, 0xFFC12345, 0x7F800001, 0x80000000, 0x7F800000,
+               0xFF800000, 0x00000001, 0x3F800000)
 FP32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 K3_OPS = ("sgd", "sgd_sqerr", "lda_init", "lda", "lda_loglik")
 # K3's widths in phases 7 and 16: one lane an edge (K = 1, 4), lane groups
@@ -214,9 +238,7 @@ def phase_kernels(device, scale=16, edge_factor=16, seed=7):
     """Phase 3: each kernel against its plain version."""
     import torch
     from graphmat_tpu_torch import Graph
-    from graphmat_tpu_torch.ops.compact import (aux_gather,
-                                                aux_gather_reference,
-                                                divert_stragglers)
+    from graphmat_tpu_torch.ops.compact import divert_stragglers
     from graphmat_tpu_torch.utils.generators import rmat_edgelist
     e = rmat_edgelist(scale, edge_factor, seed=seed, device=device)
     g = Graph(e, device=device, build_in_edges=False, compact=False)
@@ -237,21 +259,50 @@ def phase_kernels(device, scale=16, edge_factor=16, seed=7):
                     continue
                 k1_err = max(k1_err, check_spmv_case(
                     csr, x, val, sent, kind, op, mode, device))
-    # K2 on a real position map: every edge from a sender >= 64 diverts
+    # K2 on a real position map (every edge from a sender >= 64 diverts)
+    # and at odd counts, over an operand that holds NaN payloads, -0.0
+    # and +-inf at senders 0-7
     _, src_of_pos = divert_stragglers(csr.col, csr.row, g.n_pad, wr=1024,
                                       hub=64, divert_min=1 << 30, bpsb=4,
                                       w_div=16)
     if src_of_pos.numel() == 0:
         raise AssertionError("phase 3: nothing diverted")
-    for t in (x, sent):
-        out = torch.empty(src_of_pos.numel(), dtype=t.dtype, device=device)
-        aux_gather(t, src_of_pos, out)
-        sync(device)
-        if not torch.equal(out, aux_gather_reference(t, src_of_pos)):
-            raise AssertionError(f"K2 differs for {t.dtype}")
+    xs = x.clone()
+    xs[:len(K2_SPECIALS)] = torch.tensor(
+        K2_SPECIALS, dtype=torch.int64).to(torch.int32).view(
+            torch.float32).to(device)
+    maps = [src_of_pos]
+    for n in K2_COUNTS:
+        idx = torch.randint(0, g.n_pad, (n,), generator=gen, device=device)
+        idx[:min(n, len(K2_SPECIALS))] = torch.arange(
+            min(n, len(K2_SPECIALS)), device=device)
+        maps.append(idx.to(torch.int32))
+    for pos in maps:
+        check_k2(xs, sent, pos, device)
     log(f"phase 3: K1 agrees in 21 cases (max |err| {k1_err:.3e}); "
-        f"K2 bitwise equal on {src_of_pos.numel()} positions")
+        f"K2 bitwise equal, value and fused with the flags, on "
+        f"{src_of_pos.numel()} positions and at {list(K2_COUNTS)}")
     return k1_err
+
+
+def check_k2(x, sent, src_of_pos, device):
+    """K2 against its plain version on one position map, value-only and
+    fused with the sent flags, bitwise (NaN payloads included)."""
+    import torch
+    from graphmat_tpu_torch.ops.compact import (aux_gather,
+                                                aux_gather_reference)
+    n = src_of_pos.numel()
+    out = aux_gather(x, src_of_pos, torch.empty(n, device=device))
+    vals, flags = aux_gather(
+        x, src_of_pos, torch.empty(n, device=device), sent,
+        torch.empty(n, dtype=torch.uint8, device=device))
+    sync(device)
+    ref, ref_flags = aux_gather_reference(x, src_of_pos, sent)
+    for a in (out, vals):
+        if not torch.equal(a.view(torch.int32), ref.view(torch.int32)):
+            raise AssertionError(f"K2 differs at {n} positions")
+    if not torch.equal(flags, ref_flags):
+        raise AssertionError(f"K2's flags differ at {n} positions")
 
 
 def phase_golden(device_env="cuda"):
@@ -295,9 +346,10 @@ def pagerank_oracle(src0, dst0, n, niter, alpha=0.3):
 
 
 def phase_slice(device, scale=22, edge_factor=16, seed=1, graph_kw=None):
-    """Phase 5: the main path at full size, counted and checked.
-    ``graph_kw`` goes to the Graph (a smaller rehearsal forces
-    compaction with it)."""
+    """Phase 5: the main path at full size, counted and checked.  The
+    graph is compacted (``compact=True``), so that K2 is driven, counted
+    and checked at full size; ``graph_kw`` goes to the Graph (a smaller
+    rehearsal forces diversion with it)."""
     import torch
     from graphmat_tpu_torch import Graph
     from graphmat_tpu_torch.apps.pagerank import run_pagerank
@@ -311,14 +363,15 @@ def phase_slice(device, scale=22, edge_factor=16, seed=1, graph_kw=None):
     sync(device)
     t_gen = time.perf_counter() - t0
     t0 = time.perf_counter()
-    g = Graph(e, device=device, permute="degree", **(graph_kw or {}))
+    g = Graph(e, device=device, permute="degree",
+              **{"compact": True, **(graph_kw or {})})
     sync(device)
     t_build = time.perf_counter() - t0
     compacted = {r: g.csr(r).src_of_pos is not None for r in ("dst", "src")}
     if not all(compacted.values()):
         raise AssertionError(f"compaction expected on at n={g.n}: "
                              f"{compacted}")
-    n_aux = {r: int(g.csr(r).src_of_pos.numel()) for r in ("dst", "src")}
+    n_aux = {r: g.csr(r).n_aux for r in ("dst", "src")}
 
     for k in spmv2u.LAUNCHES:
         spmv2u.LAUNCHES[k] = 0
@@ -330,10 +383,12 @@ def phase_slice(device, scale=22, edge_factor=16, seed=1, graph_kw=None):
     k1 = dict(spmv2u.LAUNCHES)
     k2 = dict(compact.LAUNCHES)
     log(f"phase 5: launches over run_pagerank: K1 {k1}, K2 {k2}")
+    # one K2 launch for each K1 call on a compacted CSR, dense or sparse
     if torch.device(device).type == "cuda" and (
             k1["dense"] < niter or k1["sparse_got"] < 1
-            or k2["aux_gather"] < 1):
-        raise AssertionError("phase 5: the main path missed a kernel")
+            or k2["aux_gather"] != sum(k1.values())):
+        raise AssertionError("phase 5: the main path missed a kernel, or "
+                             "K2 did not launch once per K1 call")
 
     # the degree pass alone, timed apart (PageRank = total - degree)
     from graphmat_tpu_torch.apps.pagerank import (DegreeProgram,
@@ -392,11 +447,14 @@ def phase_timings(e, g, card):
                                                   run_pagerank)
     from graphmat_tpu_torch.core import runtime
     from graphmat_tpu_torch.ops import spmv2u
-    from graphmat_tpu_torch.ops.compact import (aux_gather,
-                                                aux_gather_reference)
     from graphmat_tpu_torch.ops.spmv2u import spmv_csr, spmv_csr_reference
 
-    g_off = Graph(e, device=g.device, permute="degree", compact=False)
+    # the card's "auto" leaves RMAT-22 uncompacted (ops/compact.py:
+    # compact_auto)
+    g_off = Graph(e, device=g.device, permute="degree", compact="auto")
+    if any(g_off.csr(r).src_of_pos is not None for r in ("dst", "src")):
+        raise AssertionError("phase 6: compact='auto' compacted RMAT-22 "
+                             "on the card")
     run_pagerank(g_off, iterations=1)   # degrees and a live pagerank
     eng = runtime.Engine(PageRankProgram(), g)
     eng_off = runtime.Engine(PageRankProgram(), g_off)
@@ -410,7 +468,7 @@ def phase_timings(e, g, card):
             runtime.spmv = kernel_spmv
 
     step = {"kernel": [], "plain": [], "kernel_compact_off": []}
-    for _ in range(2):   # two interleaved rounds, median of 5 steps each
+    for _ in range(3):   # interleaved rounds, median of 5 steps each
         step["kernel"].append(event_ms(eng.step_once, 5))
         step["plain"].append(event_ms(plain_step, 5))
         step["kernel_compact_off"].append(event_ms(eng_off.step_once, 5))
@@ -420,48 +478,38 @@ def phase_timings(e, g, card):
     gen = torch.Generator(device=g.device)
     gen.manual_seed(3)
     x = torch.rand(g.n_pad, generator=gen, device=g.device)
-    ns = csr.n_send
-    aux_out = csr.x_ext[ns:]
-    k2_ms = event_ms(lambda: aux_gather(x, csr.src_of_pos, aux_out), 20)
-    k2_plain_ms = event_ms(
-        lambda: aux_gather_reference(x, csr.src_of_pos), 20)
-    csr.x_ext[:ns].copy_(x)
-    k2_out = aux_gather(x, csr.src_of_pos, aux_out)
-    if not torch.equal(k2_out, aux_gather_reference(x, csr.src_of_pos)):
-        raise AssertionError("phase 6: K2 differs at the slice's shape")
-    dense_args = (csr.rowptr, csr.col_ext, csr.x_ext, "sum", "x")
-    k1_plan = spmv2u.plan_for(csr)
-    k1_ms = event_ms(lambda: spmv_csr(*dense_args, plan=k1_plan), 20)
-    k1_plain_ms = event_ms(
-        lambda: spmv_csr_reference(*dense_args, row=csr.row), 5)
-    k1_err = check_spmv_case(
-        type(csr)(csr.rowptr, csr.col_ext, csr.row, csr.val, ns),
-        csr.x_ext, None, None, "sum", "x", "dense", g.device)
-    # yardsticks, never called by the package: cuSPARSE for K1's dense
-    # sum, index_select for K2; and the bounds (each input read once,
-    # each output written once, at the H100's 3.35 TB/s)
+    sent_all = (torch.rand(g.n_pad, generator=gen, device=g.device)
+                < 0.5).to(torch.uint8)
+    k2 = k2_times(csr, x, sent_all)
+    (k1_args, k1_kw), k1_plan = (k1_operand(csr, x, None),
+                                 spmv2u.plan_for(csr))
+    k1_ms = event_ms(lambda: spmv_csr(*k1_args, "sum", "x", plan=k1_plan,
+                                      **k1_kw), 20)
+    k1_plain_ms = event_ms(lambda: spmv_csr_reference(
+        *k1_args, "sum", "x", row=csr.row, **k1_kw), 5)
+    k1_err = check_spmv_case(g_off.csr("dst"), x, None, None, "sum", "x",
+                             "dense", g.device)
+    # the yardstick, never called by the package (cuSPARSE), and the
+    # bound (each input read once, the output written once, at the
+    # H100's 3.35 TB/s)
     k1_lib_ms = cusparse_ms(csr.rowptr, csr.col, x)
-    pos = csr.src_of_pos.long()
-    k2_lib_ms = event_ms(lambda: torch.index_select(x, 0, pos), 20)
-    k1_bytes = 4 * (csr.rowptr.numel() + csr.nnz + csr.x_ext.numel()
+    k1_bytes = 4 * (csr.rowptr.numel() + csr.nnz + x.numel() + csr.n_aux
                     + csr.n_rows)
-    n_pos = csr.src_of_pos.numel()
-    k2_bytes = 4 * (2 * n_pos + min(n_pos, ns))
     csr_in = g.csr("src")
-    sent = (torch.rand(csr_in.x_ext.numel(), generator=gen,
-                       device=g.device) < 0.5).to(torch.uint8)
-    got_args = (csr_in.rowptr, csr_in.col_ext, csr_in.x_ext, "sum", "x")
-    got_plan = spmv2u.plan_for(csr_in)
+    (got_args, got_kw), got_plan = (k1_operand(csr_in, x, sent_all),
+                                    spmv2u.plan_for(csr_in))
     k1_got_ms = event_ms(lambda: spmv_csr(
-        *got_args, sent=sent, want_got=True, plan=got_plan), 20)
+        *got_args, "sum", "x", want_got=True, plan=got_plan, **got_kw), 20)
     k1_got_plain_ms = event_ms(
-        lambda: spmv_csr_reference(*got_args, sent=sent, want_got=True,
-                                   row=csr_in.row), 5)
+        lambda: spmv_csr_reference(*got_args, "sum", "x", want_got=True,
+                                   row=csr_in.row, **got_kw), 5)
 
     step_ms = min(step["kernel"])
     profile = profile_run(eng.step_once)
+    diagnosis = k2_diagnosis(g, g_off, x)
     out = {
         "step_profile": profile,
+        "step_profile_compact_off": profile_run(eng_off.step_once),
         "card": card,
         "step_ms": step,
         "gteps_kernel": g.nnz / (step_ms * 1e-3) / 1e9,
@@ -471,14 +519,224 @@ def phase_timings(e, g, card):
         "k1_dense_sum_ms": k1_ms, "k1_dense_sum_plain_ms": k1_plain_ms,
         "k1_sparse_got_ms": k1_got_ms,
         "k1_sparse_got_plain_ms": k1_got_plain_ms,
-        "k2_ms": k2_ms, "k2_plain_ms": k2_plain_ms,
-        "k2_positions": int(csr.src_of_pos.numel()),
+        "k2": k2,
         "k1_cusparse_ms": k1_lib_ms, "k1_bound_ms": hbm_ms(k1_bytes),
-        "k2_index_select_ms": k2_lib_ms, "k2_bound_ms": hbm_ms(k2_bytes),
+        "k2_diagnosis": diagnosis,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
     }
     log("phase 6 (" + card + "): " + json.dumps(out))
     return out, k1_err
+
+def k2_times(csr, x, sent, reps=20):
+    """K2 alone on one compacted direction, checked bitwise: value-only
+    and fused with the sent flags, beside their plain versions and one
+    ``index_select`` (a yardstick, never called by the package), and
+    their bounds: src_of_pos read, the values (and flags) written, and
+    the 32-byte sectors of x (and sent) that the senders touch read
+    once, at the H100's 3.35 TB/s."""
+    import torch
+    from graphmat_tpu_torch.ops.compact import (aux_gather,
+                                                aux_gather_reference)
+    src, n = csr.src_of_pos, csr.n_aux
+    pos = src[:n].long()
+    check_k2(x, sent, src, x.device)
+    value_bytes = 8 * n + 32 * torch.unique(pos >> 3).numel()
+    fused_bytes = value_bytes + n + 32 * torch.unique(pos >> 5).numel()
+    return {
+        "positions": n,
+        "ms": event_ms(lambda: aux_gather(x, src, csr.x_ext), reps),
+        "plain_ms": event_ms(lambda: aux_gather_reference(x, src), reps),
+        "fused_ms": event_ms(lambda: aux_gather(
+            x, src, csr.x_ext, sent, csr.sent_ext), reps),
+        "fused_plain_ms": event_ms(
+            lambda: aux_gather_reference(x, src, sent), reps),
+        "index_select_ms": event_ms(
+            lambda: torch.index_select(x, 0, pos), reps),
+        "bound_ms": hbm_ms(value_bytes),
+        "fused_bound_ms": hbm_ms(fused_bytes)}
+
+
+def spread_ms(fn, singles=20, burst=200, warm=3):
+    """One function's times within one call: ``singles`` launches each
+    between its own CUDA events (median, min, max), then ``burst``
+    back-to-back launches between one pair (the mean per launch)."""
+    import torch
+    for _ in range(warm):
+        fn()
+    one = [event_ms(fn, 1, warm=0) for _ in range(singles)]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(burst):
+        fn()
+    end.record()
+    end.synchronize()
+    return {"single_median_ms": statistics.median(one),
+            "single_min_ms": min(one), "single_max_ms": max(one),
+            "burst_mean_ms": start.elapsed_time(end) / burst}
+
+
+def k1_operand(csr, x, sent):
+    """The arguments K1 takes for one direction's operand: K2 runs here
+    when the CSR is compacted."""
+    from graphmat_tpu_torch.ops import spmv2u
+    col, x_aux, sent_aux = spmv2u._operand(csr, x, sent)
+    return (csr.rowptr, col, x), {"sent": sent, "x_aux": x_aux,
+                                  "sent_aux": sent_aux}
+
+
+def compaction_costs(csr, off, x, sent, rounds=2, reps=20):
+    """What compaction costs and saves one SpMV on one direction: the
+    operand's preparation alone (``_operand``: copies and K2), K1 alone
+    on the compacted and on the uncompacted CSR, and the whole ``spmv``
+    on each, for a dense sum and a sparse sum with got, in interleaved
+    rounds; the compacted results must equal the uncompacted bitwise."""
+    import torch
+    from graphmat_tpu_torch.ops import spmv2u
+    plans = {"on": spmv2u.plan_for(csr), "off": spmv2u.plan_for(off)}
+    out = {}
+    for mode, s in (("dense", None), ("sparse_got", sent)):
+        got = s is not None
+        a_on, kw_on = k1_operand(csr, x, s)
+        a_off = (off.rowptr, off.col, x)
+        runs = {
+            "operand_ms": lambda: spmv2u._operand(csr, x, s),
+            "k1_on_ms": lambda: spmv2u.spmv_csr(
+                *a_on, "sum", "x", want_got=got, plan=plans["on"], **kw_on),
+            "k1_off_ms": lambda: spmv2u.spmv_csr(
+                *a_off, "sum", "x", sent=s, want_got=got,
+                plan=plans["off"]),
+            "spmv_on_ms": lambda: spmv2u.spmv(csr, x, "sum", "x", sent=s,
+                                              want_got=got),
+            "spmv_off_ms": lambda: spmv2u.spmv(off, x, "sum", "x", sent=s,
+                                               want_got=got)}
+        r_on, r_off = runs["spmv_on_ms"](), runs["spmv_off_ms"]()
+        for a, b in zip(*((r_on, r_off) if got else ((r_on,), (r_off,)))):
+            if not torch.equal(a, b):
+                raise AssertionError(f"K1 {mode}: the compacted CSR's "
+                                     "result differs from the uncompacted")
+        res = {k: [] for k in runs}
+        for _ in range(rounds):
+            for k, fn in runs.items():
+                res[k].append(event_ms(fn, reps))
+        out[mode] = res
+    return out
+
+
+def k2_diagnosis(g, g_off, x, seed=43):
+    """K2's spread within one call beside ``index_select``'s, and what
+    compaction costs one SpMV (:func:`compaction_costs`) on the dst
+    direction of a compacted graph and of its ``compact=False`` twin."""
+    import torch
+    from graphmat_tpu_torch.ops.compact import aux_gather
+    csr, off = g.csr("dst"), g_off.csr("dst")
+    src = csr.src_of_pos
+    pos = src[:csr.n_aux].long()
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(seed)
+    sent = (torch.rand(csr.n_send, generator=gen, device=x.device)
+            < 0.5).to(torch.uint8)
+    return {
+        "k2_value": spread_ms(lambda: aux_gather(x, src, csr.x_ext)),
+        "k2_fused": spread_ms(lambda: aux_gather(x, src, csr.x_ext, sent,
+                                                 csr.sent_ext)),
+        "index_select": spread_ms(lambda: torch.index_select(x, 0, pos)),
+        "costs": compaction_costs(csr, off, x, sent)}
+
+
+def phase_above_l2(card, scale=24, edge_factor=16, seed=1, rounds=3,
+                   device="cuda", graph_kw=None):
+    """Phase 18: compaction above L2.  RMAT-``scale`` built on the card,
+    degree-permuted, its dst direction once compacted and once with the
+    card's ``compact="auto"``, which leaves it uncompacted; K1 dense sum
+    and sparse with got, the PageRank step and K2, in interleaved rounds;
+    PageRank to convergence on both must give the same iteration count
+    and a bitwise equal vector, and K1 bitwise equal results.
+    ``graph_kw`` goes to the compacted Graph (a smaller rehearsal forces
+    diversion with it)."""
+    import torch
+    from graphmat_tpu_torch import Graph
+    from graphmat_tpu_torch.apps.pagerank import PageRankProgram
+    from graphmat_tpu_torch.core.runtime import Engine
+    from graphmat_tpu_torch.ops.compact import compact_auto, compact_enabled
+    from graphmat_tpu_torch.utils.generators import rmat_edgelist
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        # the card's "auto" compacts neither RMAT-22 nor RMAT-24, where
+        # the JAX rule compacts both (PERF.md §6: it pays at neither)
+        for n in (1 << 22, 1 << scale):
+            if compact_auto(n, device) or not compact_enabled(n):
+                raise AssertionError(f"phase 18: compact='auto' at {n} "
+                                     "senders is not the card's rule")
+    t0 = time.perf_counter()
+    e = rmat_edgelist(scale, edge_factor, a=0.57, b=0.19, c=0.19,
+                      seed=seed, device=device)
+    sync(device)
+    secs = {"generate": time.perf_counter() - t0}
+    graphs = {}
+    for name, kw in (("on", dict(compact=True, **(graph_kw or {}))),
+                     ("off", dict(compact="auto" if cuda else False))):
+        t0 = time.perf_counter()
+        graphs[name] = Graph(e, device=device, permute="degree",
+                             build_in_edges=False, **kw)
+        sync(device)
+        secs[f"build_{name}"] = time.perf_counter() - t0
+        if cuda:
+            torch.cuda.empty_cache()
+    del e
+    on, off = graphs["on"], graphs["off"]
+    c_on, c_off = on.csr("dst"), off.csr("dst")
+    if c_on.src_of_pos is None or c_off.src_of_pos is not None:
+        raise AssertionError("phase 18: expected the compacted graph and "
+                             "an uncompacted one from compact='auto'")
+    # the degree pass, as a count of each sender's edges
+    deg = torch.bincount(c_off.col.long(), minlength=off.n_pad).to(
+        torch.int32)
+    runs = {}
+    for name, g in graphs.items():
+        g.vp = {"pagerank": torch.full((g.n_pad,), 0.3, device=device),
+                "degree": deg.clone()}
+        g.set_all_active()
+        eng = Engine(PageRankProgram(alpha=0.3), g)
+        t0 = time.perf_counter()
+        niter = eng.run()
+        sync(device)
+        runs[name] = (niter, g.vp["pagerank"].clone(), eng,
+                      time.perf_counter() - t0)
+    if runs["on"][0] != runs["off"][0] or not torch.equal(
+            runs["on"][1], runs["off"][1]):
+        raise AssertionError(
+            f"phase 18: PageRank differs with compaction on ({runs['on'][0]}"
+            f" iterations) and off ({runs['off'][0]})")
+    pr = runs["on"][1]
+    if not bool(torch.isfinite(pr).all()):
+        raise AssertionError("phase 18: PageRank not finite")
+    out = {"card": card, "scale": scale, "n": on.n, "nnz": on.nnz,
+           "operand_bytes": 4 * c_on.n_send, "positions": c_on.n_aux,
+           "pagerank_iterations": runs["on"][0],
+           "run_s": {k: v[3] for k, v in runs.items()}, "seconds": secs}
+    if cuda:
+        out["l2_bytes"] = torch.cuda.get_device_properties(
+            0).L2_cache_size
+        step = {"on": [], "off": []}
+        for _ in range(rounds):
+            for name in ("on", "off"):
+                step[name].append(event_ms(runs[name][2].step_once, 5))
+        out["step_ms"] = step
+        out["step_profile"] = {name: profile_run(runs[name][2].step_once)
+                               for name in ("on", "off")}
+        gen = torch.Generator(device=device)
+        gen.manual_seed(17)
+        x = torch.rand(on.n_pad, generator=gen, device=device)
+        sent = (torch.rand(on.n_pad, generator=gen, device=device)
+                < 0.5).to(torch.uint8)
+        out["costs"] = compaction_costs(c_on, c_off, x, sent)
+        out["k2"] = k2_times(c_on, x, sent)
+        out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"phase 18 ({card}): " + json.dumps(out))
+    return out
+
 
 # ---------------------------------------------------------------- K3
 
@@ -1883,8 +2141,11 @@ def profile_run(fn, top=6):
         return {"wall_ms": wall, "device_ms": "not measured"}
     return {"wall_ms": wall, "device_ms": dev,
             "device_idle_share": max(0.0, 1 - dev / wall),
+            "device_launches": sum(r[1] for r in rows),
             "top": [{"kernel": k, "ms": ms, "count": c}
-                    for ms, c, k in rows[:top]]}
+                    for ms, c, k in rows[:top]],
+            "memcpy": [{"kernel": k, "ms": ms, "count": c}
+                       for ms, c, k in rows if "Memcpy" in k]}
 
 
 def hub_diagnosis(g, x, reps=20):
@@ -2496,6 +2757,8 @@ def main(argv=None):
             MOVIELENS_25M["ratings"])
         k4_err = max(k4_err, k4_err_slice)
         k5_err = max(k5_err, t5["d"]["k5"]["max_abs_err"])
+    if want(18):
+        phase_above_l2(card)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     if only:
         return
@@ -2518,8 +2781,8 @@ def main(argv=None):
         kernel_record(
             "aux_gather", "graphmat_tpu_torch/csrc/compact.cu",
             "graphmat_tpu/ops/pallas_compact.py:408", k2_path, 0.0,
-            t["k2_ms"], t["k2_plain_ms"], t["k2_bound_ms"], "bytes",
-            t["k2_index_select_ms"]),
+            t["k2"]["ms"], t["k2"]["plain_ms"], t["k2"]["bound_ms"],
+            "bytes", t["k2"]["index_select_ms"]),
         kernel_record(
             "spmv_vec2", "graphmat_tpu_torch/csrc/spmv_vec2.cu",
             "graphmat_tpu/ops/pallas_spmv_vec2.py:510",

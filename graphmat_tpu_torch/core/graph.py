@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..io.edgelist import EdgeList, edgelist_from_arrays
-from ..ops.compact import compact_enabled, divert_stragglers
+from ..ops.compact import compact_auto, divert_stragglers, pad_positions
 
 __all__ = ["Graph", "CSR", "round_up"]
 
@@ -43,8 +43,12 @@ class CSR:
 
     ``col_ext``/``src_of_pos`` exist when the direction is compacted: a
     diverted edge reads sender ``n_send + p`` of an operand extension
-    whose position ``p`` holds sender ``src_of_pos[p]``; ``x_ext`` and
-    ``sent_ext`` are that operand's preallocated buffers."""
+    whose position ``p`` holds sender ``src_of_pos[p]`` (``n_aux``
+    positions, padded with sender 0 to a multiple of
+    :data:`~graphmat_tpu_torch.ops.compact.QUAD`); ``x_ext`` and
+    ``sent_ext`` are the extension's buffers, of that padded length:
+    the compaction gather writes them, K1 reads them beside the operand
+    itself."""
 
     rowptr: torch.Tensor        # int32[n_rows + 1]
     col: torch.Tensor           # int32[nnz], sender of each edge
@@ -53,6 +57,7 @@ class CSR:
     n_send: int
     col_ext: Optional[torch.Tensor] = None
     src_of_pos: Optional[torch.Tensor] = None
+    n_aux: int = 0
     x_ext: Optional[torch.Tensor] = None
     sent_ext: Optional[torch.Tensor] = None
     _val_f32: Optional[torch.Tensor] = None
@@ -127,19 +132,19 @@ def _build_csr(senders, receivers, vals, n_pad: int, compact,
     rowptr[1:] = torch.cumsum(counts, 0)
     csr = CSR(rowptr, col, row, val, n_pad)
     if compact == "auto":
-        compact = compact_enabled(n_pad)
+        compact = compact_auto(n_pad, col.device)
     if compact and csr.nnz:
         col_ext, src_of_pos = divert_stragglers(col, row, n_pad,
                                                 **(compact_kw or {}))
-        n_aux = src_of_pos.numel()
-        if n_aux:
-            dev = col.device
+        if src_of_pos.numel():
             csr.col_ext = col_ext
-            csr.src_of_pos = src_of_pos
-            csr.x_ext = torch.empty(n_pad + n_aux, dtype=torch.float32,
-                                    device=dev)
-            csr.sent_ext = torch.empty(n_pad + n_aux, dtype=torch.uint8,
-                                       device=dev)
+            csr.n_aux = src_of_pos.numel()
+            csr.src_of_pos = pad_positions(src_of_pos)
+            n_ext = csr.src_of_pos.numel()
+            csr.x_ext = torch.empty(n_ext, dtype=torch.float32,
+                                    device=col.device)
+            csr.sent_ext = torch.empty(n_ext, dtype=torch.uint8,
+                                       device=col.device)
     return csr
 
 
@@ -163,7 +168,9 @@ class Graph:
         (``"cuda"``) by default, which raises without a GPU.
     compact : "auto", True or False
         Operand compaction (:mod:`graphmat_tpu_torch.ops.compact`):
-        "auto" turns it on at the JAX package's trigger (8192 operand
+        "auto" leaves it off on the card, where it does not pay
+        (:func:`~graphmat_tpu_torch.ops.compact.compact_auto`), and
+        elsewhere turns it on at the JAX package's trigger (8192 operand
         rows of 128 vertices, about 1M vertices).
     compact_kw : dict
         Parameters of :func:`~graphmat_tpu_torch.ops.compact.divert_stragglers`

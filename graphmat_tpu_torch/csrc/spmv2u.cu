@@ -17,6 +17,13 @@
 //       normal floats (KEY_BIAS = 0x20000000 keeps them out of the
 //       denormals), so float min orders them as int min.  The library is
 //       built without --use_fast_math: no flush-to-zero question arises.
+//   operand: a sender id s < n_send reads x[s] (and sent[s]), where the
+//            send wrote them; on a CSR that compaction diverted, an edge
+//            of sender n_send + p reads position p of K2's extension,
+//            x_aux[p] (and sent_aux[p]; csrc/compact.cu).  Diversion
+//            changes only where a value is read, never the order of a
+//            row's edges, so the result is bitwise that of the
+//            uncompacted CSR.
 //   dense:   every edge contributes.
 //   sparse:  an edge contributes only when sent[sender] != 0; with `got`
 //            the kernel also writes an int32 count of the receiver's edges
@@ -108,12 +115,25 @@ struct Args {
   const int* col;
   const float* val;
   const float* x;
+  const float* x_aux;
   const uint8_t* sent;
+  const uint8_t* sent_aux;
   const uint8_t* recv_final;
   float* y;
   int* got;
+  int n_send;
   int bits;
 };
+
+// Sender s's value and sent flag: the operand's below n_send, K2's
+// extension's above.
+__device__ __forceinline__ float load_x(const Args& a, int s) {
+  return __ldg(s < a.n_send ? a.x + s : a.x_aux + (s - a.n_send));
+}
+
+__device__ __forceinline__ uint8_t load_sent(const Args& a, int s) {
+  return __ldg(s < a.n_send ? a.sent + s : a.sent_aux + (s - a.n_send));
+}
 
 // The plan: rows[seg[w] .. seg[w + 1]) are the rows of width 4 << w;
 // chunk c of a hub row covers edges [chunk_start[c], + C) of row
@@ -151,11 +171,11 @@ __device__ __forceinline__ void lane_edges(const Args& a, int e, int end,
     bool ok[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u)
-      ok[u] = s[u] >= 0 && (M == kDense || __ldg(a.sent + s[u]) != 0);
+      ok[u] = s[u] >= 0 && (M == kDense || load_sent(a, s[u]) != 0);
     float xv[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u)
-      xv[u] = ok[u] ? __ldg(a.x + s[u]) : 0.0f;
+      xv[u] = ok[u] ? load_x(a, s[u]) : 0.0f;
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       if (ok[u]) {
@@ -309,6 +329,8 @@ int ceil_div(int a, int b) { return (a + b - 1) / b; }
 // One K1 SpMV (one launch, and a second when the CSR has rows of more than
 // C edges).  reduce: 0 sum, 1 min, 2 max; process: 0 x, 1 x*val, 2 x+val,
 // 3 key+val (shift `bits`); mode: 0 dense, 1 sparse, 2 sparse with got.
+// x and sent hold n_send senders; x_aux and sent_aux (null on an
+// uncompacted CSR) hold the senders col names from n_send up.
 // recv_final (sparse modes) may be null: no row is final.  The plan
 // (ops/spmv2u.py: k1_plan): rows int32[n4 + n8 + n16 + n32], the rows of
 // each width in that order; chunk_row and chunk_start int32[n_chunks];
@@ -317,22 +339,25 @@ int ceil_div(int a, int b) { return (a + b - 1) / b; }
 // Every row of the CSR is in rows or long_rows once.  Pointers the mode,
 // process or plan does not read may be null.  Returns cudaGetLastError().
 extern "C" int gm_spmv(const void* rowptr, const void* col, const void* val,
-                       const void* x, const void* sent,
-                       const void* recv_final, void* y, void* got,
+                       const void* x, const void* x_aux, const void* sent,
+                       const void* sent_aux, const void* recv_final, void* y,
+                       void* got,
                        const void* rows, const void* chunk_row,
                        const void* chunk_start, const void* long_rows,
                        const void* long_first, void* part, void* part_cnt,
                        int n4, int n8, int n16, int n32, int n_chunks,
-                       int n_long, int reduce, int process, int mode,
-                       int bits, void* stream) {
+                       int n_long, int n_send, int reduce, int process,
+                       int mode, int bits, void* stream) {
   if (n4 < 0 || n8 < 0 || n16 < 0 || n32 < 0 || n_chunks < n_long ||
-      n_long < 0 || bits < 0 || bits > 31)
+      n_long < 0 || n_send < 0 || bits < 0 || bits > 31)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{static_cast<const int*>(rowptr), static_cast<const int*>(col),
                static_cast<const float*>(val), static_cast<const float*>(x),
+               static_cast<const float*>(x_aux),
                static_cast<const uint8_t*>(sent),
+               static_cast<const uint8_t*>(sent_aux),
                static_cast<const uint8_t*>(recv_final),
-               static_cast<float*>(y), static_cast<int*>(got), bits};
+               static_cast<float*>(y), static_cast<int*>(got), n_send, bits};
   Plan p{static_cast<const int*>(rows), static_cast<const int*>(chunk_row),
          static_cast<const int*>(chunk_start),
          static_cast<const int*>(long_rows),

@@ -102,11 +102,11 @@ def load() -> ctypes.CDLL:
     (every launch calls this, so it must cost nothing after the first)."""
     lib = ctypes.CDLL(str(build()))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gm_spmv.argtypes = [p] * 15 + [i] * 10 + [p]
+    lib.gm_spmv.argtypes = [p] * 17 + [i] * 11 + [p]
     lib.gm_spmv.restype = i
     lib.gm_spmv_push.argtypes = [p] * 9 + [i] * 6 + [p]
     lib.gm_spmv_push.restype = i
-    lib.gm_aux_gather.argtypes = [p, p, p, ctypes.c_longlong, i, p]
+    lib.gm_aux_gather.argtypes = [p] * 5 + [ctypes.c_longlong, p]
     lib.gm_aux_gather.restype = i
     f = ctypes.c_float
     lib.gm_spmv_vec2.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, f,

@@ -5,11 +5,14 @@ straggler edges (a sender window that holds few of a receiver block's
 edges) read their sender's value from a compacted copy of the operand
 that one gather pass builds per super-block of receiver blocks, so the
 SpMV walks dense windows.  Here the same rule picks the same edges, and
-the copy is a flat extension of the operand: position ``p`` holds
-``x[src_of_pos[p]]``, and a diverted edge reads sender ``n_send + p``.
+the copy is an extension beside the operand: position ``p`` holds
+``x[src_of_pos[p]]`` (and, in the sparse modes, ``sent[src_of_pos[p]]``),
+and a diverted edge reads sender ``n_send + p``.  K1 reads the other
+senders from the operand itself, so nothing copies it.
 
 :func:`aux_gather` launches the hand-written kernel
-``graphmat_tpu_torch/csrc/compact.cu`` on a CUDA tensor and runs
+``graphmat_tpu_torch/csrc/compact.cu`` on a CUDA tensor, once per SpMV
+for the value and the flag together, and runs
 :func:`aux_gather_reference` on a CPU tensor.
 """
 
@@ -19,14 +22,16 @@ import torch
 
 from . import _lib
 
-__all__ = ["H_COMPACT_MIN", "compact_enabled", "divert_stragglers",
-           "aux_gather", "aux_gather_reference", "LAUNCHES"]
+__all__ = ["H_COMPACT_MIN", "QUAD", "compact_enabled", "compact_auto",
+           "divert_stragglers", "pad_positions", "aux_gather",
+           "aux_gather_reference", "LAUNCHES"]
 
 LANE = 128
 # the JAX trigger (pallas_compact.py:64, pallas_spmv2u.py:706 and 731):
 # compaction is on from 8192 operand rows of 128 senders
 H_COMPACT_MIN = 8192
 HUB_MAX = 16 * LANE   # build_spmv2u_plan clamps the hub to this
+QUAD = 4   # positions a K2 thread takes; the CSR pads src_of_pos to it
 
 # launches of the compaction gather kernel; only aux_gather adds to it
 LAUNCHES = {"aux_gather": 0}
@@ -38,6 +43,25 @@ def compact_enabled(n_send: int) -> bool:
     rows = -(-n_send // LANE)
     h = max(-(-rows // LANE) * LANE, LANE)
     return h >= H_COMPACT_MIN
+
+
+def compact_auto(n_send: int, device) -> bool:
+    """What ``compact="auto"`` does for an operand of ``n_send`` senders
+    on ``device``: on the card, never compact; elsewhere the JAX rule
+    (:func:`compact_enabled`), as the port's parity tests expect.
+
+    On an H100 (80GB HBM3, 700 W) compaction pays at neither scale
+    measured, below or above the card's 50 MB L2 (``chip_smoke.py``
+    phases 6 and 18; PERF.md §6): the dense PageRank step on a
+    degree-permuted RMAT-22 (a 16.8 MB operand) is never faster
+    compacted (0.03-0.10 ms slower in four runs of six, within the
+    noise in the others), and on RMAT-24 (67 MB, with 17.2M extension
+    positions) 1.4-3% slower in every run.  K1 alone gains at most 1.5%
+    there, less than the gather costs.  ``compact=True`` still compacts, with the same results
+    bitwise."""
+    if torch.device(device).type == "cuda":
+        return False
+    return compact_enabled(n_send)
 
 
 def divert_stragglers(senders: torch.Tensor, receivers: torch.Tensor,
@@ -79,39 +103,83 @@ def divert_stragglers(senders: torch.Tensor, receivers: torch.Tensor,
     return s_ext.to(torch.int32), src_of_pos
 
 
-def aux_gather_reference(x: torch.Tensor,
-                         src_of_pos: torch.Tensor) -> torch.Tensor:
-    """Plain version of K2: ``x[src_of_pos]``."""
-    return x[src_of_pos.long()]
+def pad_positions(src_of_pos: torch.Tensor) -> torch.Tensor:
+    """``src_of_pos`` padded with sender 0 to a multiple of :data:`QUAD`
+    positions, so that K2's threads take whole quads; no edge reads a
+    pad position."""
+    pad = -src_of_pos.numel() % QUAD
+    if not pad:
+        return src_of_pos
+    return torch.cat((src_of_pos, src_of_pos.new_zeros(pad)))
 
 
-def aux_gather(x: torch.Tensor, src_of_pos: torch.Tensor,
-               out: torch.Tensor) -> torch.Tensor:
-    """``out[p] = x[src_of_pos[p]]`` for a float32 operand or a uint8
-    mask; returns ``out``.  ``src_of_pos`` must index into ``x`` (the
-    Graph constructor guarantees it; it is not re-checked per call)."""
-    if x.dtype not in (torch.float32, torch.uint8):
-        raise TypeError(f"aux_gather takes float32 or uint8, not {x.dtype}")
+def aux_gather_reference(x: torch.Tensor, src_of_pos: torch.Tensor,
+                         sent: torch.Tensor = None):
+    """Plain version of K2: ``x[src_of_pos]``, and with ``sent`` also
+    ``sent[src_of_pos]``."""
+    idx = src_of_pos.long()
+    return x[idx] if sent is None else (x[idx], sent[idx])
+
+
+def _check(x, src_of_pos, out, sent, sent_out):
+    if x.dtype != torch.float32 or out.dtype != torch.float32:
+        raise TypeError(f"aux_gather takes a float32 x and out, not "
+                        f"{x.dtype} and {out.dtype}")
     if src_of_pos.dtype != torch.int32:
         raise TypeError("src_of_pos must be int32")
-    if out.dtype != x.dtype or out.shape != src_of_pos.shape:
-        raise ValueError("out must match x's dtype and src_of_pos's shape")
-    for t in (x, src_of_pos, out):
+    if (sent is None) != (sent_out is None):
+        raise ValueError("aux_gather takes sent and sent_out together")
+    ts = [(x, 1), (src_of_pos, 16), (out, 16)]
+    if sent is not None:
+        if sent.dtype != torch.uint8 or sent_out.dtype != torch.uint8:
+            raise TypeError("sent and sent_out must be uint8")
+        if sent.shape != x.shape:
+            raise ValueError("sent must hold one flag per sender of x")
+        ts += [(sent, 1), (sent_out, 4)]
+    for t, align in ts:
         if t.dim() != 1 or not t.is_contiguous():
             raise ValueError("aux_gather takes contiguous 1-D tensors")
         if t.device != x.device:
             raise ValueError("aux_gather's tensors must share one device")
+        if t.data_ptr() % align:
+            raise ValueError(f"aux_gather: src_of_pos and out must start "
+                             f"on a 16-byte boundary, sent_out on a 4-byte "
+                             f"one (a tensor starts at {t.data_ptr():#x})")
+    for t in (out, sent_out):
+        if t is not None and t.shape != src_of_pos.shape:
+            raise ValueError("out and sent_out must match src_of_pos")
+
+
+def aux_gather(x: torch.Tensor, src_of_pos: torch.Tensor,
+               out: torch.Tensor, sent: torch.Tensor = None,
+               sent_out: torch.Tensor = None):
+    """``out[p] = x[src_of_pos[p]]`` for a float32 operand, copied bit for
+    bit, and with ``sent`` (uint8, one flag per sender) also ``sent_out[p]
+    = sent[src_of_pos[p]]`` in the same launch.  Returns ``out``, or
+    ``(out, sent_out)``.  ``src_of_pos`` and ``out`` start on a 16-byte
+    boundary and ``sent_out`` on a 4-byte one (fresh tensors do);
+    ``src_of_pos`` must index into ``x`` (the Graph constructor guarantees
+    it; it is not re-checked per call)."""
+    _check(x, src_of_pos, out, sent, sent_out)
+    res = out if sent is None else (out, sent_out)
     if x.device.type == "cpu":
-        return out.copy_(aux_gather_reference(x, src_of_pos))
+        ref = aux_gather_reference(x, src_of_pos, sent)
+        if sent is None:
+            return out.copy_(ref)
+        out.copy_(ref[0])
+        sent_out.copy_(ref[1])
+        return res
     if x.device.type != "cuda":
         raise RuntimeError(f"aux_gather has no kernel for {x.device}")
     n = src_of_pos.numel()
     if n == 0:
-        return out
+        return res
     lib = _lib.load()
-    rc = lib.gm_aux_gather(x.data_ptr(), src_of_pos.data_ptr(),
-                           out.data_ptr(), n, x.element_size(),
-                           torch.cuda.current_stream(x.device).cuda_stream)
+    rc = lib.gm_aux_gather(
+        x.data_ptr(), None if sent is None else sent.data_ptr(),
+        src_of_pos.data_ptr(), out.data_ptr(),
+        None if sent_out is None else sent_out.data_ptr(), n,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _lib.check(lib, rc, "aux_gather")
     LAUNCHES["aux_gather"] += 1
-    return out
+    return res

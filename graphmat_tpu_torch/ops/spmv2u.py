@@ -25,8 +25,11 @@ more than :data:`CHUNK_EDGES` edges and a sum is the same from run to run.
 :func:`spmv_csr` launches the hand-written kernel
 ``graphmat_tpu_torch/csrc/spmv2u.cu`` on CUDA tensors and runs
 :func:`spmv_csr_reference` on CPU tensors.  :func:`spmv` is the graph-level
-entry: it first extends the operand through the compaction gather
-(:mod:`.compact`) when the graph's CSR carries one.
+entry.  On a compacted CSR it first runs the compaction gather
+(:mod:`.compact`) into the CSR's extension buffers, once for the value
+and the sent flag together; K1 then reads a sender below ``n_send`` from
+``x`` where the send wrote it and a diverted edge's sender ``n_send + p``
+from position ``p`` of the extension.  Nothing copies the operand.
 """
 
 from __future__ import annotations
@@ -131,7 +134,7 @@ def plan_for(graph_csr) -> K1Plan:
 
 
 def _check(rowptr, col, x, reduce_kind, process_op, val, sent, want_got,
-           recv_final=None, bits=0):
+           recv_final=None, bits=0, x_aux=None, sent_aux=None):
     if reduce_kind not in _REDUCE_CODE:
         raise ValueError(f"reduce_kind {reduce_kind!r} is not one of "
                          f"{sorted(_REDUCE_CODE)}")
@@ -149,6 +152,16 @@ def _check(rowptr, col, x, reduce_kind, process_op, val, sent, want_got,
         need.append((val, torch.float32, "val"))
     if sent is not None:
         need.append((sent, torch.uint8, "sent"))
+    if x_aux is not None:
+        need.append((x_aux, torch.float32, "x_aux"))
+    if (sent_aux is not None) != (sent is not None and x_aux is not None):
+        raise ValueError("sent_aux goes with sent and x_aux: the flags of "
+                         "the extension's senders")
+    if sent_aux is not None:
+        need.append((sent_aux, torch.uint8, "sent_aux"))
+        if sent_aux.shape != x_aux.shape:
+            raise ValueError("sent_aux must hold one flag per entry of "
+                             "x_aux")
     if recv_final is not None:
         if sent is None:
             raise ValueError("recv_final is honoured in the sparse modes "
@@ -175,12 +188,17 @@ def _check(rowptr, col, x, reduce_kind, process_op, val, sent, want_got,
 
 def spmv_csr_reference(rowptr, col, x, reduce_kind, process_op, val=None,
                        sent=None, want_got=False, row=None, recv_final=None,
-                       bits=0):
+                       bits=0, x_aux=None, sent_aux=None):
     """Plain version of K1: gather ``x[col]``, ⊗, then ``scatter_reduce_``
     into an identity-filled ``y``; rows marked in ``recv_final`` get the
     identity and a count of 0.  ``row`` (the receiver of each edge) is
-    derived from ``rowptr`` when not given."""
+    derived from ``rowptr`` when not given.  With ``x_aux`` (and
+    ``sent_aux``), sender ``len(x) + p`` reads their position ``p``."""
     n_rows = rowptr.numel() - 1
+    if x_aux is not None:
+        x = torch.cat((x, x_aux))
+        if sent is not None:
+            sent = torch.cat((sent, sent_aux))
     if row is None:
         row = torch.repeat_interleave(
             torch.arange(n_rows, device=x.device), rowptr.diff().long())
@@ -208,24 +226,32 @@ def spmv_csr_reference(rowptr, col, x, reduce_kind, process_op, val=None,
 
 
 def spmv_csr(rowptr, col, x, reduce_kind, process_op, val=None, sent=None,
-             want_got=False, row=None, recv_final=None, bits=0, plan=None):
+             want_got=False, row=None, recv_final=None, bits=0, plan=None,
+             x_aux=None, sent_aux=None):
     """K1 on a CSR: ``rowptr`` int32[n_rows+1], ``col`` int32[nnz] (each
-    < len(x); the Graph constructor guarantees it), ``x`` float32, ``val``
-    float32[nnz] when ⊗ reads it, ``sent`` uint8 like ``x``,
-    ``recv_final`` uint8[n_rows] (sparse modes only), ``bits`` the shift
-    of ``key_add_val``.  Returns ``y`` float32[n_rows], and with
-    ``want_got`` also the int32 count.  ``row`` is used only by the plain
-    version; ``plan`` (:func:`k1_plan` of ``rowptr``) only by the kernel,
-    which builds it (with host reads) when not given."""
+    < len(x) + len(x_aux); the Graph constructor guarantees it), ``x``
+    float32, ``val`` float32[nnz] when ⊗ reads it, ``sent`` uint8 like
+    ``x``, ``recv_final`` uint8[n_rows] (sparse modes only), ``bits`` the
+    shift of ``key_add_val``.  On a compacted CSR ``x_aux`` (float32) and,
+    with ``sent``, ``sent_aux`` (uint8) are K2's extension: sender
+    ``len(x) + p`` reads their position ``p``.  Returns ``y``
+    float32[n_rows], and with ``want_got`` also the int32 count.  ``row``
+    is used only by the plain version; ``plan`` (:func:`k1_plan` of
+    ``rowptr``) only by the kernel, which builds it (with host reads) when
+    not given."""
     _check(rowptr, col, x, reduce_kind, process_op, val, sent, want_got,
-           recv_final, bits)
+           recv_final, bits, x_aux, sent_aux)
     if x.device.type == "cpu":
         return spmv_csr_reference(rowptr, col, x, reduce_kind, process_op,
-                                  val, sent, want_got, row, recv_final, bits)
+                                  val, sent, want_got, row, recv_final, bits,
+                                  x_aux, sent_aux)
     if x.device.type != "cuda":
         raise RuntimeError(f"spmv has no kernel for {x.device}")
     if col.numel() > 2 ** 31 - 1 - CHUNK_EDGES:
         raise ValueError("spmv takes fewer than 2^31 - 1025 edges")
+    n_aux = 0 if x_aux is None else x_aux.numel()
+    if x.numel() + n_aux > 2 ** 31 - 1:
+        raise ValueError("spmv takes fewer than 2^31 senders")
     n_rows = rowptr.numel() - 1
     y = torch.empty(n_rows, dtype=torch.float32, device=x.device)
     got = (torch.empty(n_rows, dtype=torch.int32, device=x.device)
@@ -244,14 +270,16 @@ def spmv_csr(rowptr, col, x, reduce_kind, process_op, val=None, sent=None,
     rc = lib.gm_spmv(
         rowptr.data_ptr(), col.data_ptr(),
         val.data_ptr() if process_op != "x" else None, x.data_ptr(),
+        x_aux.data_ptr() if x_aux is not None else None,
         sent.data_ptr() if sent is not None else None,
+        sent_aux.data_ptr() if sent_aux is not None else None,
         recv_final.data_ptr() if recv_final is not None else None,
         y.data_ptr(), got.data_ptr() if want_got else None,
         plan.rows.data_ptr(), plan.chunk_row.data_ptr(),
         plan.chunk_start.data_ptr(), plan.long_rows.data_ptr(),
         plan.long_first.data_ptr(), part.data_ptr(),
         part_cnt.data_ptr() if want_got else None, *plan.counts, n_chunks,
-        plan.long_rows.numel(),
+        plan.long_rows.numel(), x.numel(),
         _REDUCE_CODE[reduce_kind], _PROCESS_CODE[process_op],
         {"dense": 0, "sparse": 1, "sparse_got": 2}[mode], bits,
         torch.cuda.current_stream(x.device).cuda_stream)
@@ -261,21 +289,18 @@ def spmv_csr(rowptr, col, x, reduce_kind, process_op, val=None, sent=None,
 
 
 def _operand(graph_csr, x, sent):
-    """The operand (and sent mask) the kernel reads: ``x`` itself, or,
-    for a compacted CSR, ``x`` followed by the compaction gather's
-    extension, written into the CSR's preallocated buffers."""
+    """``(col, x_aux, sent_aux)`` for K1 over one direction: the CSR's
+    senders, and no extension; or, on a compacted CSR, its diverted
+    senders and the extension that one K2 launch writes into the CSR's
+    buffers (the flags too when ``sent`` is given)."""
     c = graph_csr
     if c.src_of_pos is None:
-        return c.col, x, sent
-    ns = c.n_send
-    c.x_ext[:ns].copy_(x)
-    aux_gather(x, c.src_of_pos, c.x_ext[ns:])
-    sent_ext = None
-    if sent is not None:
-        sent_ext = c.sent_ext
-        sent_ext[:ns].copy_(sent)
-        aux_gather(sent, c.src_of_pos, sent_ext[ns:])
-    return c.col_ext, c.x_ext, sent_ext
+        return c.col, None, None
+    if sent is None:
+        aux_gather(x, c.src_of_pos, c.x_ext)
+        return c.col_ext, c.x_ext, None
+    aux_gather(x, c.src_of_pos, c.x_ext, sent, c.sent_ext)
+    return c.col_ext, c.x_ext, c.sent_ext
 
 
 def _check_operand(graph_csr, x, sent):
@@ -291,14 +316,14 @@ def spmv(graph_csr, x, reduce_kind, process_op, val=None, sent=None,
     """K1 over one direction of a graph (a ``core.graph.CSR``): ``x`` and
     ``sent`` hold one entry per sender (``graph_csr.n_send``),
     ``recv_final`` one per receiver row.  On a compacted CSR this runs K2
-    into the operand extension first."""
+    into the CSR's extension first (one launch)."""
     _check_operand(graph_csr, x, sent)
-    col, x_op, sent_op = _operand(graph_csr, x, sent)
+    col, x_aux, sent_aux = _operand(graph_csr, x, sent)
     plan = plan_for(graph_csr) if x.device.type == "cuda" else None
-    return spmv_csr(graph_csr.rowptr, col, x_op, reduce_kind, process_op,
-                    val=val, sent=sent_op, want_got=want_got,
+    return spmv_csr(graph_csr.rowptr, col, x, reduce_kind, process_op,
+                    val=val, sent=sent, want_got=want_got,
                     row=graph_csr.row, recv_final=recv_final, bits=bits,
-                    plan=plan)
+                    plan=plan, x_aux=x_aux, sent_aux=sent_aux)
 
 
 def spmv_reference(graph_csr, x, reduce_kind, process_op, val=None,

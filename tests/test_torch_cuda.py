@@ -81,19 +81,100 @@ def test_spmv_kernel_matches_plain(cuda, kind, op, mode):
     assert bool(((out - ref).abs() <= bound).all())
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.uint8])
-def test_aux_gather_kernel_matches_plain(cuda, dtype):
+# bit patterns of x's senders 0-7: NaNs with payloads (quiet and
+# signalling), -0.0, +-inf, a denormal, 1.0
+K2_SPECIALS = [0x7FC00001, 0xFFC12345, 0x7F800001, 0x80000000, 0x7F800000,
+               0xFF800000, 0x00000001, 0x3F800000]
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 5, (1 << 20) + 3, 300_001])
+@pytest.mark.parametrize("fused", [False, True])
+def test_aux_gather_kernel_matches_plain(cuda, fused, n):
+    """K2, value-only and fused with the sent flags, bitwise its plain
+    version at counts on and off whole quads, in one launch."""
     gen = torch.Generator(device=cuda)
     gen.manual_seed(1)
-    x = (torch.rand(100_000, generator=gen, device=cuda) * 200).to(dtype)
-    src = torch.randint(0, x.numel(), (300_001,), generator=gen,
-                        device=cuda, dtype=torch.int32)
-    out = torch.empty(src.numel(), dtype=dtype, device=cuda)
+    x = torch.randn(100_000, generator=gen, device=cuda)
+    x[:8] = torch.tensor(K2_SPECIALS, dtype=torch.int64).to(
+        torch.int32).view(torch.float32).to(cuda)
+    sent = (torch.rand(x.numel(), generator=gen, device=cuda) < 0.5).to(
+        torch.uint8)
+    src = torch.randint(0, x.numel(), (n,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    src[:min(n, 8)] = torch.arange(min(n, 8), device=cuda,
+                                   dtype=torch.int32)
+    out = torch.empty(n, device=cuda)
+    flags = torch.empty(n, dtype=torch.uint8, device=cuda)
     before = compact.LAUNCHES["aux_gather"]
-    compact.aux_gather(x, src, out)
+    if fused:
+        compact.aux_gather(x, src, out, sent, flags)
+    else:
+        compact.aux_gather(x, src, out)
     torch.cuda.synchronize()
     assert compact.LAUNCHES["aux_gather"] == before + 1
-    assert torch.equal(out, compact.aux_gather_reference(x, src))
+    ref, ref_flags = compact.aux_gather_reference(x, src, sent)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    if fused:
+        assert torch.equal(flags, ref_flags)
+
+
+# K1 on a compacted CSR: every reduce x ⊗ x mode, with and without
+# recv_final (sparse modes), and packed keys
+K1_COMPACT_CASES = [(k, op, m, f) for k in ("sum", "min", "max")
+                    for op in ("x", "x_mul_val", "x_add_val", "key_add_val")
+                    for m in ("dense", "sparse", "sparse_got")
+                    for f in ((False,) if m == "dense" else (False, True))
+                    if (m != "sparse_got" or k == "sum")
+                    and (op != "key_add_val" or k == "min")]
+
+
+@functools.lru_cache(maxsize=None)
+def _compacted_pair():
+    e = rmat_edgelist(11, 16, seed=4, device="cpu")
+    kw = dict(permute="degree", build_in_edges=False, device="cuda")
+    on = gt.Graph(e, compact=True, compact_kw=dict(
+        wr=256, hub=16, divert_min=40, bpsb=2, w_div=1), **kw).csr("dst")
+    off = gt.Graph(e, compact=False, **kw).csr("dst")
+    return on, off
+
+
+@pytest.mark.parametrize("kind,op,mode,final", K1_COMPACT_CASES)
+def test_k1_on_compacted_csr_equals_uncompacted(cuda, kind, op, mode,
+                                                final):
+    """K1 reads the operand where it stands and a diverted edge's value
+    from K2's extension: bitwise the uncompacted CSR's result, with one
+    K2 launch a call."""
+    on, off = _compacted_pair()
+    assert on.src_of_pos is not None and off.src_of_pos is None
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(8)
+    n = on.n_send
+    if op == "key_add_val":
+        x = (spmv2u.KEY_BIAS + torch.randint(
+            0, 1 << 20, (n,), generator=gen, device=cuda)).to(
+                torch.int32).view(torch.float32).clone()
+        val = torch.randint(1, 8, (on.nnz,), generator=gen,
+                            device=cuda).float()
+    else:
+        x = torch.randn(n, generator=gen, device=cuda)
+        val = torch.randn(on.nnz, generator=gen, device=cuda)
+    kw = dict(val=val, bits=13)
+    if mode != "dense":
+        kw["sent"] = (torch.rand(n, generator=gen, device=cuda)
+                      < 0.4).to(torch.uint8)
+        kw["want_got"] = mode == "sparse_got"
+        if final:
+            kw["recv_final"] = (torch.rand(on.n_rows, generator=gen,
+                                           device=cuda) < 0.3).to(
+                                               torch.uint8)
+    k2 = compact.LAUNCHES["aux_gather"]
+    a = spmv2u.spmv(on, x, kind, op, **kw)
+    torch.cuda.synchronize()
+    assert compact.LAUNCHES["aux_gather"] == k2 + 1
+    b = spmv2u.spmv(off, x, kind, op, **kw)
+    for u, v in zip(a if mode == "sparse_got" else (a,),
+                    b if mode == "sparse_got" else (b,)):
+        assert torch.equal(u.view(torch.int32), v.view(torch.int32))
 
 
 @pytest.mark.parametrize("compacted", [False, True])
