@@ -12,7 +12,8 @@ SSSP, connected components, topological sort, incremental PageRank,
 delta-stepping) on both kernel routes: K1 with its receiver-finality skip
 (``GRAPHMAT_KERNEL=v2u``) and the push kernel for K6/K7
 (``GRAPHMAT_KERNEL=v2``), then ACTIVE_ONLY K-wide programs on K3's sparse
-mode (K4, with K5's got count fused in).  Phases, in order; any failure
+mode (K4, with K5's got count fused in), then TriangleCounting (its two
+hot loops, T1 and T2) and GetNeighbors.  Phases, in order; any failure
 raises and the script exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit) and the software;
@@ -115,7 +116,27 @@ raises and the script exits non-zero:
     equal (dense sum, sparse with got); timings in interleaved rounds:
     the PageRank step (and its torch.profiler breakdown, on and off),
     what compaction costs one SpMV (as phase 6), K2 alone; peak device
-    memory.
+    memory;
+19. TriangleCounting and GetNeighbors: (a) T1 (the core count) and T2
+    (the tail count) against their plain versions, exactly, on RMAT-16
+    upper-triangular at h = 64, 128 and 4096, a graph whose every edge
+    is core (RMAT-12 at h = 4096) and one whose every edge is tail
+    (h = 0), a tail-hub graph whose tail lists reach class 8192, a
+    graph of 90 vertices (W = 3 words), and the empty graph, each count
+    also against the host route's; (b) the TC CLI on
+    ``data/2_10_upper_triangle.bin.mtx`` on the engine and the bucketed
+    route against ``tests/golden/tc_2_10.txt``; (c) RMAT-22 x 16, seed 1,
+    upper-triangular on the card: ``run_triangle_counting`` with "auto"
+    (the bucketed route, T1 and T2 launched, counted over the run), its
+    total and per-vertex counts exactly the host route's (numpy prep),
+    RMAT-16's total equal to scipy's; on a uniform graph of 2^20
+    vertices (undirected average degree 16) ``run_get_neighbors``
+    against a numpy oracle and the engine route's total against the
+    bucketed one; (d) timings from CUDA events: a cold count from the
+    edge tensors at RMAT-20 and RMAT-22 (bench.py:492-525's protocol, 5
+    reps, M edges/s), its torch.profiler breakdown and idle share, peak
+    device memory, T1 and T2 alone beside their bounds and plain
+    versions.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Phase numbers given as arguments run
@@ -123,6 +144,7 @@ phases 1-2 and those only, without the result lines.
 """
 
 import contextlib
+import functools
 import io
 import json
 import os
@@ -1722,19 +1744,21 @@ def golden(name):
 
 
 def reset_counts():
-    from graphmat_tpu_torch.ops import compact, spmv2, spmv2u
-    for d in (spmv2u.LAUNCHES, spmv2.LAUNCHES, compact.LAUNCHES):
+    from graphmat_tpu_torch.ops import compact, spmv2, spmv2u, triangles
+    for d in (spmv2u.LAUNCHES, spmv2.LAUNCHES, compact.LAUNCHES,
+              triangles.LAUNCHES):
         for k in d:
             d[k] = 0
 
 
 def read_counts():
     """The launches since :func:`reset_counts` that are not 0, as
-    ``{"kernel.mode": n}`` (k1, push, k2)."""
-    from graphmat_tpu_torch.ops import compact, spmv2, spmv2u
+    ``{"kernel.mode": n}`` (k1, push, k2, and tc: T1 and T2)."""
+    from graphmat_tpu_torch.ops import compact, spmv2, spmv2u, triangles
     return {f"{name}.{mode}": n for name, d in (
         ("k1", spmv2u.LAUNCHES), ("push", spmv2.LAUNCHES),
-        ("k2", compact.LAUNCHES)) for mode, n in d.items() if n}
+        ("k2", compact.LAUNCHES), ("tc", triangles.LAUNCHES))
+        for mode, n in d.items() if n}
 
 
 def launches(counts, kernel):
@@ -2294,10 +2318,17 @@ def phase_traversal_timings(card, report, gw, scale=22, edge_factor=16,
     push_ms = event_ms(push_dense, 20)
     push_plain_ms = event_ms(lambda: spmv_push_reference(sc, x, "sum", "x"),
                              3, warm=1)
-    ref = spmv_push_reference(sc, x, "sum", "x")
-    err = compare_out("push dense sum at the slice's shape", push_dense(),
-                      ref, "sum", sum_bound(sc.col.long(), sc.row.long(), x[
-                          sc.row.long()], g.n_pad))
+    # held against the plain sum in float64: the push's atomics and the
+    # plain version's scatter_reduce_ both sum a hub row in an order that
+    # changes from run to run, and two float32 sums of a row of some 4e4
+    # terms can differ by more than SUM_RTOL of its sum (1.06e-5 seen once
+    # on the card); the exact sum leaves only the kernel's own rounding
+    send, recv = sc.row.long(), sc.col.long()
+    ref = torch.zeros(g.n_pad, dtype=torch.float64,
+                      device="cuda").index_add_(0, recv, x[send].double())
+    err = compare_out("push dense sum at the slice's shape",
+                      push_dense().double(), ref, "sum",
+                      sum_bound(recv, send, x[send], g.n_pad).double())
     push_bytes = 4 * (sc.rowptr.numel() + sc.nnz + 2 * g.n_pad)
     out["push_dense_sum"] = {
         "ms": push_ms, "plain_ms": push_plain_ms,
@@ -2660,6 +2691,416 @@ def phase_active_vec(device, card, users, items, ratings, k=20, seed=31,
     return path, worst, res
 
 
+TC_HS = (64, 128, 4096)        # core sizes of phase 19's RMAT-16 checks
+TAIL_HUB = dict(L=5000, k=8)   # tail lists of 5008 ids: ladder class 8192
+TC_REPS = 5                    # bench.py's reps for the timed counts
+
+
+def tc_pairs(e):
+    """0-based int64 pairs of an upper-triangular edge list, on its
+    device."""
+    import torch
+    return (torch.as_tensor(e.src).long() - 1,
+            torch.as_tensor(e.dst).long() - 1)
+
+
+def tail_hub_pairs(device, L, k):
+    """A graph whose tail lists reach a large ladder class at h = 64: the
+    complete bipartite graph between Y and Z (L vertices each), and k
+    senders S, a clique, each joined to all of Y.  A vertex of Y has
+    degree L + k and outranks S (degree L + k - 1), which outranks Z, so
+    each sender's tail list holds Y below the core and the senders ranked
+    above it (L + k - 64 ids and fewer), and the clique's edges are the
+    probes.  Returns ``(u, v, n, triangles)``."""
+    import torch
+    ar = functools.partial(torch.arange, device=device)
+    Y, Z, S = ar(L), L + ar(L), 2 * L + ar(k)
+    i, j = torch.triu_indices(k, k, 1, device=device)
+    u = torch.cat((Y.repeat_interleave(L), S.repeat_interleave(L), S[i]))
+    v = torch.cat((Z.repeat(L), Y.repeat(k), S[j]))
+    return u, v, 2 * L + k, k * (k - 1) // 2 * L + k * (k - 1) * (k - 2) // 6
+
+
+def check_tc_kernels(what, u, v, n, h, device, canonical=False):
+    """T1 and T2 against their plain versions on the device prep's
+    arguments for one edge list, exactly; then the whole count against
+    the host route's.  Returns a summary of the shapes."""
+    import torch
+    from graphmat_tpu_torch.ops import triangles as tri
+    t1, *t2 = tri._kernel_args(u, v, n, h, canonical)
+    t2 = t2[0] if t2 else None
+    nacc = n + 1
+    got = tri.core_count(*t1, torch.zeros(nacc, dtype=torch.int32,
+                                          device=device))
+    sync(device)
+    ref = tri.core_count_reference(*t1, torch.zeros(
+        nacc, dtype=torch.int32, device=device))
+    if not torch.equal(got, ref):
+        raise AssertionError(f"{what}: T1 differs from its plain version")
+    info = {"edges": int(u.numel()), "bitmap": list(t1[0].shape),
+            "t1_sum": int(ref.sum(dtype=torch.int64)), "probes": 0}
+    if t2 is not None:
+        got = tri.tail_count(*t2, torch.zeros(nacc, dtype=torch.int32,
+                                              device=device))
+        sync(device)
+        ref = tri.tail_count_reference(*t2, torch.zeros(
+            nacc, dtype=torch.int32, device=device))
+        if not torch.equal(got, ref):
+            raise AssertionError(f"{what}: T2 differs from its plain version")
+        gk = t2[2]
+        info.update(probes=int(gk.numel()),
+                    t2_sum=int(ref.sum(dtype=torch.int64)),
+                    widest=tri._LADDER[int(torch.maximum(
+                        gk // tri._NC, gk % tri._NC).max())])
+    pv, total = tri.count_triangles_bucketed(u, v, n, h=h,
+                                             assume_canonical=canonical)
+    pv_h, total_h = tri.count_triangles_bucketed(
+        u, v, n, h=h, assume_canonical=canonical, impl="host")
+    if total != total_h or not torch.equal(pv, pv_h):
+        raise AssertionError(f"{what}: the device prep's count differs from "
+                             f"the host route's ({total} != {total_h})")
+    info["triangles"] = total
+    return info
+
+
+def phase_tc_kernels(device, scale=16, tail_hub=TAIL_HUB):
+    """Phase 19 (a): T1 and T2 against their plain versions, exactly, on
+    RMAT-``scale`` upper-triangular at each core size of TC_HS; on a graph
+    whose every edge is core (RMAT-12, n = h = 4096) and one whose every
+    edge is tail (h = 0: no core); on the tail-hub graph; on a graph of
+    90 vertices (W = 3 words, padded to 4); on the empty graph."""
+    import torch
+    from graphmat_tpu_torch.io.transforms import convert_to_upper_triangular
+    from graphmat_tpu_torch.ops import triangles as tri
+    from graphmat_tpu_torch.utils.generators import (random_edgelist,
+                                                      rmat_edgelist)
+    res = {}
+    e = convert_to_upper_triangular(rmat_edgelist(scale, 16, seed=1,
+                                                  device=device))
+    u, v = tc_pairs(e)
+    for h in TC_HS:
+        res[f"rmat{scale}_h{h}"] = check_tc_kernels(
+            f"RMAT-{scale} h={h}", u, v, e.n, h, device, canonical=True)
+    res[f"rmat{scale}_h0_all_tail"] = check_tc_kernels(
+        f"RMAT-{scale} h=0", u, v, e.n, 0, device, canonical=True)
+    if res[f"rmat{scale}_h0_all_tail"]["bitmap"][1] != 0:
+        raise AssertionError("h = 0 must leave no core")
+    e12 = convert_to_upper_triangular(rmat_edgelist(12, 16, seed=1,
+                                                    device=device))
+    u12, v12 = tc_pairs(e12)
+    r12 = check_tc_kernels("RMAT-12 all core", u12, v12, e12.n, 4096,
+                           device, canonical=True)
+    if r12["probes"]:
+        raise AssertionError("RMAT-12 at h = 4096 must have no tail")
+    res["rmat12_all_core"] = r12
+    hu, hv, hn, want = tail_hub_pairs(device, **tail_hub)
+    rh = check_tc_kernels("tail hub", hu, hv, hn, 64, device, canonical=True)
+    if rh["triangles"] != want or rh["widest"] < tail_hub["L"]:
+        raise AssertionError(f"tail hub: {rh}, want {want} triangles")
+    res["tail_hub"] = rh
+    e90 = random_edgelist(90, 8, seed=1)
+    u90 = torch.as_tensor(e90.src, device=device).long() - 1
+    v90 = torch.as_tensor(e90.dst, device=device).long() - 1
+    r90 = check_tc_kernels("n=90", u90, v90, 90, 4096, device)
+    if r90["bitmap"][1] != 4:
+        raise AssertionError(f"n=90: W4 {r90['bitmap'][1]}, want 4")
+    res["n90_w3"] = r90
+    empty = torch.zeros(0, dtype=torch.int64, device=device)
+    pv, total = tri.count_triangles_bucketed(empty, empty, 1000)
+    z = torch.zeros(0, dtype=torch.int32, device=device)
+    before = dict(tri.LAUNCHES)
+    tri.core_count(torch.zeros((1, 4), dtype=torch.int32, device=device), z,
+                   z, z, pv)
+    tri.tail_count(z, tri._LADDER, z, z, z, z, pv)
+    sync(device)
+    if total or bool(pv.any()) or tri.LAUNCHES != before:
+        raise AssertionError("the empty graph must count 0 and launch "
+                             "nothing")
+    res["empty"] = {"triangles": 0}
+    log("phase 19 (a): T1 and T2 equal their plain versions exactly, and "
+        "the device prep the host route: " + json.dumps(res))
+    return res
+
+
+def phase_tc_golden(cuda=True):
+    """Phase 19 (b): the TriangleCounting CLI on the fixture against the
+    reference binary's total (tests/golden/tc_2_10.txt), on the engine
+    route (what "auto" picks there) and on the bucketed one."""
+    from graphmat_tpu_torch.apps import triangle_counting as tc
+    want = re.search(r"Total triangles = (\d+)", golden("tc_2_10.txt"))[1]
+    fixture = os.path.join(ROOT, "data", "2_10_upper_triangle.bin.mtx")
+    old_env = os.environ.get("GRAPHMAT_PLATFORM")
+    os.environ["GRAPHMAT_PLATFORM"] = "cuda" if cuda else "cpu"
+    run = tc.run_triangle_counting
+    try:
+        for method in ("engine", "bucketed"):
+            tc.run_triangle_counting = functools.partial(run, method=method)
+            out = run_cli("graphmat_tpu_torch.apps.triangle_counting",
+                          [fixture])
+            if f"Total triangles = {want}\n" not in out:
+                raise AssertionError(f"TC CLI ({method}): no total {want} "
+                                     f"in {out!r}")
+    finally:
+        tc.run_triangle_counting = run
+        if old_env is None:
+            os.environ.pop("GRAPHMAT_PLATFORM", None)
+        else:
+            os.environ["GRAPHMAT_PLATFORM"] = old_env
+    log(f"phase 19 (b): the TC CLI prints the golden total {want} on the "
+        "engine and the bucketed route")
+
+
+def neighbors_oracle(src1, dst1, n, width):
+    """Sorted out-neighbour ids of each vertex (1-based edge arrays on the
+    host), padded with INT32_MAX to ``width``."""
+    order = np.lexsort((dst1, src1))
+    s, d = src1[order].astype(np.int64) - 1, dst1[order]
+    start = np.searchsorted(s, np.arange(n))
+    out = np.full((n, width), 2 ** 31 - 1, np.int32)
+    out[s, np.arange(len(s)) - start[s]] = d
+    return out
+
+
+def scipy_triangles(e):
+    """The triangles of an upper-triangular edge list by scipy on the
+    host: sum((A @ A) .* A), independent of both preps."""
+    from scipy.sparse import coo_matrix
+    src = np.asarray(torch_cpu(e.src), np.int64) - 1
+    dst = np.asarray(torch_cpu(e.dst), np.int64) - 1
+    a = coo_matrix((np.ones(len(src), np.int64), (src, dst)),
+                   shape=(e.n, e.n)).tocsr()
+    return int((a @ a).multiply(a).sum())
+
+
+def torch_cpu(a):
+    import torch
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+
+
+def phase_tc_slice(device, scale=22, small_scale=16, uniform_scale=20,
+                   uniform_degree=8):
+    """Phase 19 (c): TriangleCounting at full size.  RMAT-``scale`` x 16,
+    seed 1, made upper-triangular and deduplicated on the card:
+    ``run_triangle_counting`` with "auto", which must take the bucketed
+    route, launching T1 and T2 (counted over that run), its total and
+    every per-vertex count exactly the host route's (numpy prep) on the
+    same edges; RMAT-``small_scale``'s total against scipy's.  Then, on a
+    uniform random graph of 2^``uniform_scale`` vertices and
+    ``uniform_degree`` edges a vertex (undirected average degree 16),
+    upper-triangular: ``run_get_neighbors`` against a numpy oracle, and
+    TriangleCounting's engine route against its bucketed total."""
+    import torch
+    from graphmat_tpu_torch import Graph
+    from graphmat_tpu_torch.apps.get_neighbors import run_get_neighbors
+    from graphmat_tpu_torch.apps.triangle_counting import \
+        run_triangle_counting
+    from graphmat_tpu_torch.io.transforms import convert_to_upper_triangular
+    from graphmat_tpu_torch.ops import triangles as tri
+    from graphmat_tpu_torch.ops.neighbors import max_degree
+    from graphmat_tpu_torch.utils.generators import (random_edgelist,
+                                                      rmat_edgelist)
+    cuda = torch.device(device).type == "cuda"
+    res = {}
+    t0 = time.perf_counter()
+    e = convert_to_upper_triangular(rmat_edgelist(scale, 16, seed=1,
+                                                  device=device))
+    g = Graph(e, device=device)
+    sync(device)
+    dmax = max_degree(g, "src")
+    t1 = time.perf_counter()
+    reset_counts()
+    tri_v, total = run_triangle_counting(g)
+    sync(device)
+    counts = read_counts()
+    t2 = time.perf_counter()
+    if cuda and (counts.get("tc.core_count", 0) < 1
+                 or counts.get("tc.tail_count", 0) < 1):
+        raise AssertionError(f"RMAT-{scale} TC: T1 and T2 must launch, "
+                             f"launches {counts}")
+    if dmax <= 1024:
+        raise AssertionError(f"RMAT-{scale}: max out-degree {dmax} would "
+                             "take the engine route")
+    pv_h, total_h = tri.count_triangles_bucketed(*tc_pairs(e), e.n,
+                                                 impl="host")
+    t3 = time.perf_counter()
+    if total != total_h or not np.array_equal(tri_v, pv_h.cpu().numpy()):
+        raise AssertionError(f"RMAT-{scale} TC: {total} differs from the "
+                             f"host route's {total_h}")
+    res[f"rmat{scale}"] = {
+        "n": e.n, "edges": e.nnz, "max_out_degree": dmax,
+        "triangles": total, "launches": counts,
+        "build_s": t1 - t0, "run_s": t2 - t1, "host_route_s": t3 - t2}
+    del g, e, pv_h, tri_v
+
+    e16 = convert_to_upper_triangular(rmat_edgelist(
+        small_scale, 16, seed=1, device=device))
+    _, t16 = run_triangle_counting(Graph(e16, device=device))
+    want16 = scipy_triangles(e16)
+    if t16 != want16:
+        raise AssertionError(f"RMAT-{small_scale} TC: {t16}, scipy "
+                             f"{want16}")
+    res[f"rmat{small_scale}"] = {"triangles": t16, "scipy": want16}
+
+    n = 1 << uniform_scale
+    eu = convert_to_upper_triangular(random_edgelist(n, uniform_degree,
+                                                     seed=1))
+    t4 = time.perf_counter()
+    gu = Graph(eu, device=device)
+    nb = run_get_neighbors(gu)
+    t5 = time.perf_counter()
+    ref = neighbors_oracle(eu.src, eu.dst, n, nb.shape[1])
+    if not np.array_equal(nb, ref):
+        raise AssertionError("GetNeighbors differs from its numpy oracle")
+    _, t_eng = run_triangle_counting(gu, method="engine")
+    t6 = time.perf_counter()
+    _, t_bkt = run_triangle_counting(gu, method="bucketed")
+    if t_eng != t_bkt:
+        raise AssertionError(f"uniform TC: engine {t_eng}, bucketed {t_bkt}")
+    res[f"uniform{uniform_scale}"] = {
+        "edges": eu.nnz, "width": int(nb.shape[1]), "triangles": t_eng,
+        "get_neighbors_s": t5 - t4, "engine_s": t6 - t5}
+    log("phase 19 (c): " + json.dumps(res))
+    return res
+
+
+def tc_profile(fn):
+    """One run of ``fn`` under torch.profiler: wall ms, and device ms by
+    part (T1, T2, device-to-host copies: the stats and the total; the
+    rest is the prep's PyTorch ops), and the device's idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    parts = {"t1": 0.0, "t2": 0.0, "reads": 0.0, "prep": 0.0}
+    top = []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0)) / 1e3
+        if ms <= 0:
+            continue
+        key = ("t1" if "core_count_kernel" in ev.key else
+               "t2" if "tail_count_kernel" in ev.key else
+               "reads" if "DtoH" in ev.key else "prep")
+        parts[key] += ms
+        top.append((ms, ev.count, ev.key[:70]))
+    dev = sum(parts.values())
+    if dev == 0:
+        return {"wall_ms": wall, "device_ms": "not measured"}
+    top.sort(reverse=True)
+    return {"wall_ms": wall, "device_ms": dev,
+            "device_idle_share": max(0.0, 1 - dev / wall),
+            "parts_ms": parts,
+            "top": [{"kernel": k, "ms": ms, "count": c}
+                    for ms, c, k in top[:8]]}
+
+
+def phase_tc_timings(card, scales=(20, 22)):
+    """Phase 19 (d): TriangleCounting timed on the card, CUDA events.  At
+    each RMAT scale (x 16, seed 1): undirected unique pairs made on the
+    card, counted with ``assume_canonical=True``, each rep a cold count
+    from the edge tensors (bench.py:492-525), ``TC_REPS`` reps, median,
+    list and M edges/s; one count's torch.profiler breakdown and idle
+    share; peak device memory over a count; T1 and T2 alone on that
+    count's arguments beside their bounds (bytes read once at 3.35 TB/s)
+    and their plain versions (one run each), whose outputs must equal the
+    kernels' exactly."""
+    import torch
+    from graphmat_tpu_torch.io.transforms import convert_to_upper_triangular
+    from graphmat_tpu_torch.ops import triangles as tri
+    from graphmat_tpu_torch.utils.generators import rmat_edgelist
+    res = {"card": card}
+    for scale in scales:
+        e = convert_to_upper_triangular(rmat_edgelist(scale, 16, seed=1,
+                                                      device="cuda"))
+        u, v = tc_pairs(e)
+        n = e.n
+        del e
+        _, total = tri.count_triangles_bucketed(u, v, n,
+                                                assume_canonical=True)
+        times = []
+        for _ in range(TC_REPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            _, tot = tri.count_triangles_bucketed(u, v, n,
+                                                  assume_canonical=True)
+            end.record()
+            end.synchronize()
+            if tot != total:
+                raise AssertionError(f"RMAT-{scale} TC: rep gave {tot}, "
+                                     f"first {total}")
+            times.append(start.elapsed_time(end))
+        med = statistics.median(times)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tri.count_triangles_bucketed(u, v, n, assume_canonical=True)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        prof = tc_profile(lambda: tri.count_triangles_bucketed(
+            u, v, n, assume_canonical=True))
+
+        t1, *rest = tri._kernel_args(u, v, n, canonical=True)
+        nacc = n + 1
+        pv = torch.zeros(nacc, dtype=torch.int32, device="cuda")
+        ref = torch.zeros_like(pv)
+        bm, iu = t1[0], t1[1]
+        # each kernel timed, then its plain version once on the same
+        # arguments (T2's takes tens of seconds here); the outputs of the
+        # last launch and of the plain run must be equal
+        k = {"t1_ms": event_ms(lambda: tri.core_count(*t1, pv.zero_()), 10),
+             "t1_plain_ms": event_ms(lambda: tri.core_count_reference(
+                 *t1, ref.zero_()), 1, warm=0),
+             "t1_max_abs_err": exact_err(f"RMAT-{scale} T1", pv, ref),
+             "t1_bound_ms": hbm_ms(bm.numel() * 4 + 3 * iu.numel() * 4
+                                   + nacc * 4),
+             "bitmap_rows": bm.shape[0], "edges": iu.numel()}
+        for t2 in rest:   # T2's arguments, when some edge probes
+            mats, gk = t2[0], t2[2]
+            k.update(t2_ms=event_ms(lambda: tri.tail_count(
+                *t2, pv.zero_()), 10),
+                t2_plain_ms=event_ms(lambda: tri.tail_count_reference(
+                    *t2, ref.zero_()), 1, warm=0),
+                t2_max_abs_err=exact_err(f"RMAT-{scale} T2", pv, ref),
+                t2_bound_ms=hbm_ms(mats.numel() * 4 + 4 * gk.numel() * 4
+                                   + nacc * 4),
+                probes=gk.numel(), tail_entries=mats.numel())
+            pairs = torch.bincount(gk.long())
+            top = torch.argsort(pairs, descending=True)[:6].tolist()
+            k["probe_pairs"] = [[tri._LADDER[g // tri._NC],
+                                 tri._LADDER[g % tri._NC], int(pairs[g])]
+                                for g in top if int(pairs[g])]
+            del t2, mats, gk
+        del t1, rest, bm, iu, pv, ref
+        res[f"rmat{scale}"] = {
+            "m_undirected": u.numel(), "triangles": total,
+            "ms": med, "reps_ms": times,
+            "m_edges_per_s": u.numel() / med / 1e3,
+            "peak_bytes": peak, "base_bytes": base,
+            "profile": prof, "kernels": k}
+        del u, v
+        torch.cuda.empty_cache()
+    log("phase 19 (d) (" + card + "): " + json.dumps(res))
+    return res
+
+
+def exact_err(what, got, ref):
+    """The largest absolute difference of two integer outputs of one
+    shape, which must be 0: raises otherwise."""
+    err = float((got.long() - ref.long()).abs().max()) if got.numel() else 0.0
+    if err:
+        raise AssertionError(f"{what} differs from its plain version by "
+                             f"up to {err}")
+    return err
+
+
 def kernel_record(name, source, replaces, launches, err, ms, plain_ms,
                   bound_ms, bound_by, library_ms):
     return {"name": name, "route": "cuda", "source": source,
@@ -2759,6 +3200,11 @@ def main(argv=None):
         k5_err = max(k5_err, t5["d"]["k5"]["max_abs_err"])
     if want(18):
         phase_above_l2(card)
+    if want(19):
+        phase_tc_kernels("cuda")
+        phase_tc_golden()
+        tc_run = phase_tc_slice("cuda")
+        t6 = phase_tc_timings(card)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     if only:
         return
@@ -2817,6 +3263,25 @@ def main(argv=None):
             "graphmat_tpu/ops/pallas_spmv.py:254",
             sum(k4_path.values()), k5_err, k5t["ms"], k5t["plain_ms"],
             k5t["bound_ms"], "bytes", k5t["cusparse_ms"]),
+        # T1 and T2 at RMAT-22: TriangleCounting's two hot loops, which
+        # the JAX package runs as XLA ops; no PyTorch call computes either
+        # (torch has no popcount)
+        kernel_record(
+            "tc_core_count", "graphmat_tpu_torch/csrc/triangles.cu",
+            "graphmat_tpu/ops/triangles.py:439 (XLA loop, no Pallas kernel)",
+            tc_run["rmat22"]["launches"].get("tc.core_count", 0),
+            t6["rmat22"]["kernels"]["t1_max_abs_err"],
+            t6["rmat22"]["kernels"]["t1_ms"],
+            t6["rmat22"]["kernels"]["t1_plain_ms"],
+            t6["rmat22"]["kernels"]["t1_bound_ms"], "bytes", None),
+        kernel_record(
+            "tc_tail_count", "graphmat_tpu_torch/csrc/triangles.cu",
+            "graphmat_tpu/ops/triangles.py:485 (XLA loop, no Pallas kernel)",
+            tc_run["rmat22"]["launches"].get("tc.tail_count", 0),
+            t6["rmat22"]["kernels"]["t2_max_abs_err"],
+            t6["rmat22"]["kernels"]["t2_ms"],
+            t6["rmat22"]["kernels"]["t2_plain_ms"],
+            t6["rmat22"]["kernels"]["t2_bound_ms"], "bytes", None),
     ]}
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -46,6 +46,7 @@ def build_graph(edgelist, **graph_kw):
     if os.environ.get("GRAPHMAT_MESH", "").strip():
         raise NotImplementedError(
             "GRAPHMAT_MESH: sharded graphs are not ported to "
-            "graphmat_tpu_torch yet (ROADMAP Queue 1 item 10)")
+            "graphmat_tpu_torch yet (ROADMAP Queue 1 item 4, the "
+            "distributed engine)")
     from ..core.graph import Graph
     return Graph(edgelist, device=device_from_env(), **graph_kw)

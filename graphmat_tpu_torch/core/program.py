@@ -163,6 +163,18 @@ class GraphProgram:
       reduced message
     * ``process_requires_vertexprop``: False when ``process_message``
       ignores the receiver's property (skips a gather)
+    * ``vector_message``: True makes ⊕ a concat: each receiver collects
+      all its incoming contributions into a padded row of static width,
+      so ``apply`` receives ``[n_pad, D, ...]`` (D the direction's max
+      in-degree, or ``max_message_width``; directions concat along axis
+      1) padded with ``vector_pad``, and ``reduce`` is ignored.  The form
+      the reference's variable-length ``Serializable`` messages reduced
+      by vector append take here (``test/test_get_neighbors.cpp:131-137``,
+      ``src/TriangleCounting.cpp:92-109``).  Such a program runs the
+      plain segment path, never a kernel.
+    * ``vector_pad``: the pad value of concat rows (cast to each leaf).
+    * ``max_message_width``: a static cap on D; contributions past it
+      drop.  None (the default) takes the direction's max in-degree.
     """
 
     order: Direction = Direction.OUT_EDGES
@@ -170,6 +182,8 @@ class GraphProgram:
     reduce: Any = SUM
     process_requires_vertexprop: bool = True
     vector_message: bool = False
+    vector_pad: Any = 2 ** 31 - 1
+    max_message_width: Optional[int] = None
 
     def init_state(self, graph) -> Any:
         """Initial program state."""

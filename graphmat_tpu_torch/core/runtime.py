@@ -18,7 +18,10 @@ of runtime.py:278-352, after ``include/GraphMatRuntime.h:94-279``):
    receiver CSR, with the program's receiver-finality mask on sparse
    sweeps; ``v2`` runs the push kernel that stands for K6/K7
    (:func:`graphmat_tpu_torch.ops.spmv2.spmv_push`) over the direction's
-   sender-major index; else the plain segment reduce;
+   sender-major index; else the plain segment reduce, or for a
+   ``vector_message`` program the concat reduce
+   (:func:`graphmat_tpu_torch.ops.segment.segment_concat`), as in JAX
+   (runtime.py:158-161, 308-335);
 3. apply where a message arrived (``got & valid``);
 4. ``changed``, and the convergence test;
 5. the next frontier: every valid vertex (ALL_VERTICES) or the changed
@@ -37,8 +40,9 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..ops.neighbors import max_degree
 from ..ops.segment import (masked_fill_identity, segment_any,
-                           segment_reduce_tree)
+                           segment_concat_tree, segment_reduce_tree)
 from ..ops.spmv2 import spmv_push
 from ..ops.spmv2u import IDENTITY, spmv
 from ..ops.spmv_vec import spmv_vec_sparse
@@ -76,12 +80,13 @@ def _normalize_semiring(sem: Optional[Semiring]) -> Optional[Semiring]:
 
 def engine_for(program, graph, **kw):
     """The engine for ``graph``.  Only the one-device :class:`Graph` is
-    ported; a sharded graph waits for ROADMAP Queue 1 item 10."""
+    ported; a sharded graph waits for ROADMAP Queue 1 item 4, the
+    distributed engine."""
     if not isinstance(graph, Graph):
         raise NotImplementedError(
             f"graphmat_tpu_torch has no engine for {type(graph).__name__}: "
             "only the one-device Graph is ported (the distributed engine "
-            "is ROADMAP Queue 1 item 10)")
+            "is ROADMAP Queue 1 item 4)")
     return Engine(program, graph, **kw)
 
 
@@ -120,26 +125,31 @@ class Engine:
 
     def __init__(self, program: GraphProgram, graph: Graph,
                  ctx: Optional[IterationContext] = None):
-        if getattr(program, "vector_message", False):
-            raise NotImplementedError(
-                "vector messages are not ported yet (ROADMAP Queue 1 "
-                "item 7)")
         self.program = program
         self.graph = graph
         self.ctx = ctx if ctx is not None else IterationContext()
+        # a concat ⊕ runs the segment path (JAX runtime.py:158-161)
+        self._vecmsg = bool(getattr(program, "vector_message", False))
         # a scalar kernel cannot read the receiver's property: a program
         # whose ⊗ does (the default) runs its own process_message, as the
         # JAX Engine does (graphmat_tpu/core/runtime.py:190-192)
         self._semiring = (None if program.process_requires_vertexprop
+                          or self._vecmsg
                           else _normalize_semiring(program.semiring()))
         # dense K3 for ALL_VERTICES, its sparse mode for ACTIVE_ONLY; the
         # JAX package's fallback from K4 past a VMEM budget
         # (graphmat_tpu/core/runtime.py:162-179) has no counterpart: the
         # card's kernel reads its operands from device memory
-        self._vec: Optional[VecSemiring] = program.vec_semiring()
+        self._vec: Optional[VecSemiring] = (
+            None if self._vecmsg else program.vec_semiring())
         self._receivers = _direction_receivers(program.order)
         for recv in self._receivers:
             graph.csr(recv)   # raises if the direction was not built
+        # a concat row's width per receiver direction (JAX :237-243)
+        self._msg_width = ({recv: program.max_message_width
+                            or max_degree(graph, recv)
+                            for recv in self._receivers}
+                           if self._vecmsg else {})
         # the kernel selector, read when the Engine is built, as in JAX
         self._push = legacy_kernel_env()
         self.final_state = None
@@ -226,8 +236,15 @@ class Engine:
                 got = got | g_dir
         return sem.decode(y), got
 
+    @property
+    def vector_reduced_width(self) -> int:
+        """The static width D of the ``reduced`` rows a vector-message
+        program's ``apply`` receives (directions concat along axis 1)."""
+        return sum(self._msg_width.values())
+
     def _segment_directions(self, state, msg, sent, vp):
-        """All directions through the plain segment reduce."""
+        """All directions through the plain segment reduce, or the concat
+        reduce for a vector-message program."""
         prog = self.program
         n_pad = self.graph.n_pad
         reduced = got = None
@@ -240,11 +257,20 @@ class Engine:
             vp_r = (tree_map(lambda a: a[row], vp)
                     if prog.process_requires_vertexprop else None)
             u_e = prog.process_message(state, x_e, csr.val, vp_r)
-            u_e = masked_fill_identity(prog.reduce, u_e, e_ok)
-            partial = segment_reduce_tree(prog.reduce, u_e, row, n_pad)
+            if self._vecmsg:
+                partial = segment_concat_tree(u_e, e_ok, row, n_pad,
+                                              self._msg_width[recv],
+                                              prog.vector_pad)
+            else:
+                u_e = masked_fill_identity(prog.reduce, u_e, e_ok)
+                partial = segment_reduce_tree(prog.reduce, u_e, row, n_pad)
             g = segment_any(e_ok, row, n_pad)
             if reduced is None:
                 reduced, got = partial, g
+            elif self._vecmsg:   # concat across directions (ALL_EDGES)
+                reduced = tree_map(lambda a, b: torch.cat((a, b), 1),
+                                   reduced, partial)
+                got = got | g
             else:
                 reduced = _combine_tree(prog.reduce, reduced, partial)
                 got = got | g

@@ -23,7 +23,8 @@ __all__ = ["build", "load", "check"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = ("spmv2u.cu", "compact.cu", "spmv_vec2.cu", "spmv2.cu")
+SOURCES = ("spmv2u.cu", "compact.cu", "spmv_vec2.cu", "spmv2.cu",
+           "triangles.cu")
 BUILD_DIR = _PKG.parent / "build" / "graphmat_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -112,6 +113,12 @@ def load() -> ctypes.CDLL:
     lib.gm_spmv_vec2.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, f,
                                  f, f, p]
     lib.gm_spmv_vec2.restype = i
+    ll = ctypes.c_longlong
+    lib.gm_tc_core_count.argtypes = [p, i, i, p, p, p, ll, p, p]
+    lib.gm_tc_core_count.restype = i
+    lib.gm_tc_tail_count.argtypes = [p, ctypes.POINTER(i), i, p, p, p, p,
+                                     ll, p, p]
+    lib.gm_tc_tail_count.restype = i
     lib.gm_error_string.argtypes = [i]
     lib.gm_error_string.restype = ctypes.c_char_p
     return lib

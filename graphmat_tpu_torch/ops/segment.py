@@ -3,8 +3,9 @@
 Counterpart of ``graphmat_tpu/ops/segment.py``.  Contributions are
 reduced into their receivers with ``scatter_reduce_`` over an
 identity-filled output (``include_self=True``), leafwise over dicts,
-lists and tuples of tensors.  The generic associative-scan reduce and
-the concat reduce of vector messages are not ported yet.
+lists and tuples of tensors.  A vector-message program's ⊕ is the concat
+reduce, :func:`segment_concat`.  The generic associative-scan reduce is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from ..core.tree import tree_map
 from ..core.types import Monoid
 
 __all__ = ["segment_reduce", "segment_reduce_tree", "segment_any",
-           "masked_fill_identity"]
+           "segment_concat", "segment_concat_tree", "masked_fill_identity"]
 
 _SCATTER = {"sum": "sum", "min": "amin", "any": "amin", "max": "amax"}
 
@@ -57,6 +58,40 @@ def segment_any(mask, seg_ids, num_segments: int):
     out = torch.zeros(num_segments, dtype=torch.bool, device=mask.device)
     out[seg_ids[mask].long()] = True
     return out
+
+
+def segment_concat(data, ok, seg_ids, num_segments: int, width: int, pad):
+    """Concat reduce: each segment's OK contributions collected into a
+    padded row of static ``width``, the form the reference's
+    variable-length messages reduced by vector append take here
+    (``src/TriangleCounting.cpp:92-109``).
+
+    ``data`` is ``[e, ...]`` in receiver-sorted edge order, ``ok`` a bool
+    ``[e]`` (the sender sent), ``pad`` the fill value (cast to the
+    dtype).  Returns ``[num_segments, width, ...]``: a row's first k slots
+    hold its k OK contributions in edge order; contributions past
+    ``width`` drop."""
+    seg = seg_ids.long()
+    okx = ok.to(torch.int64)
+    c = torch.cumsum(okx, 0) - okx   # OK edges before this one
+    # seg_ids ascend, so a segment's least c is at its first edge
+    base = torch.zeros(num_segments, dtype=torch.int64, device=c.device)
+    base.scatter_reduce_(0, seg, c, "amin", include_self=False)
+    rank = c - base[seg]
+    row = torch.where(ok, seg, num_segments - 1)
+    col = torch.where(ok & (rank < width), rank, width)
+    out = torch.full((num_segments, width + 1) + tuple(data.shape[1:]),
+                     pad, dtype=data.dtype, device=data.device)
+    # the dropped and the not-OK contributions land in the extra column
+    out[row, col] = data
+    return out[:, :width]
+
+
+def segment_concat_tree(data_tree, ok, seg_ids, num_segments: int,
+                        width: int, pad):
+    """Leafwise :func:`segment_concat` (``pad`` cast to each leaf)."""
+    return tree_map(lambda leaf: segment_concat(
+        leaf, ok, seg_ids, num_segments, width, pad), data_tree)
 
 
 def masked_fill_identity(monoid, data_tree, mask):

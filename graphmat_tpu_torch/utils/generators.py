@@ -1,8 +1,9 @@
 """Synthetic graph generators (fixtures and benchmark inputs).
 
-Counterpart of ``graphmat_tpu/utils/generators.py``.  ``chain_edgelist``
-and ``random_edgelist`` are numpy and give the same edges as the JAX
-package for the same arguments.  ``rmat_edgelist`` runs on a torch
+Counterpart of ``graphmat_tpu/utils/generators.py``.  ``chain_edgelist``,
+``random_edgelist``, ``upper_triangular_edgelist`` and ``dense_edgelist``
+are numpy and give the same edges as the JAX package for the same
+arguments.  ``rmat_edgelist`` runs on a torch
 device, the card unless asked otherwise, with a given
 ``torch.Generator``: it follows the JAX package's
 quadrant rule, but draws another random stream, so its graph differs
@@ -17,7 +18,8 @@ import torch
 from ..io.edgelist import EdgeList, edgelist_from_arrays
 from ..io.transforms import remove_duplicate_edges, remove_selfedges
 
-__all__ = ["chain_edgelist", "random_edgelist", "rmat_edgelist"]
+__all__ = ["chain_edgelist", "random_edgelist", "upper_triangular_edgelist",
+           "dense_edgelist", "rmat_edgelist"]
 
 
 def chain_edgelist(n: int, wdtype=np.int32, weight=1) -> EdgeList:
@@ -46,6 +48,22 @@ def random_edgelist(n: int, avg_degree: int, seed: int = 0,
         val = np.ones(src.shape[0], wdtype)
     return remove_duplicate_edges(edgelist_from_arrays(src, dst, val,
                                                        m=n, n=n))
+
+
+def upper_triangular_edgelist(n: int, wdtype=np.int32) -> EdgeList:
+    """Complete DAG: edge (i, j) for every i < j."""
+    src, dst = np.triu_indices(n, k=1)
+    return edgelist_from_arrays(src.astype(np.int32) + 1,
+                                dst.astype(np.int32) + 1,
+                                np.ones(src.shape[0], wdtype), m=n, n=n)
+
+
+def dense_edgelist(n: int, wdtype=np.int32) -> EdgeList:
+    """Complete graph, self loops included."""
+    src, dst = np.mgrid[1:n + 1, 1:n + 1]
+    return edgelist_from_arrays(src.ravel().astype(np.int32),
+                                dst.ravel().astype(np.int32),
+                                np.ones(n * n, wdtype), m=n, n=n)
 
 
 def rmat_edgelist(scale: int, edge_factor: int = 16,

@@ -15,7 +15,10 @@ card within 1e-6 (RMSE, factors) or 1e-5 relative (LDA's N, global_N and
 log-likelihood, and factors after K = 40 steps) of the CPU port.  The
 frontier apps on the card equal their CPU runs exactly (depths, parents,
 distances, labels, orders), on both kernel routes; incremental PageRank
-within 1e-5 of max(1, |pr|) (the push route sums by atomics).
+within 1e-5 of max(1, |pr|) (the push route sums by atomics).  T1 and T2
+(TriangleCounting's core and tail counts) equal their plain versions
+exactly, and TriangleCounting and GetNeighbors on the card their CPU
+runs.
 """
 
 import functools
@@ -27,7 +30,8 @@ import torch
 
 import graphmat_tpu_torch as gt
 from graphmat_tpu_torch.apps import pagerank as tpr
-from graphmat_tpu_torch.ops import compact, spmv2, spmv2u, spmv_vec, spmv_vec2
+from graphmat_tpu_torch.ops import (compact, spmv2, spmv2u, spmv_vec,
+                                    spmv_vec2, triangles)
 from graphmat_tpu_torch.utils.generators import rmat_edgelist
 
 pytestmark = pytest.mark.cuda
@@ -756,3 +760,97 @@ def test_push_equals_k1_at_a_bfs_level_of_the_hub_graph(cuda):
         b = spmv2.spmv_push(sc, xs, kind, "x", sent=sent)
         assert torch.equal(a[live], b[live])
         assert float(a[HUB + 2]) == (1.0 if kind == "min" else float(HUB))
+
+
+def _tail_hub_pairs(device, L, k):
+    """K_{Y,Z} (L + L vertices) and a k-clique S joined to all of Y: at
+    h = 64 each sender's tail list holds about L ids."""
+    ar = functools.partial(torch.arange, device=device)
+    Y, Z, S = ar(L), L + ar(L), 2 * L + ar(k)
+    i, j = torch.triu_indices(k, k, 1, device=device)
+    return (torch.cat((Y.repeat_interleave(L), S.repeat_interleave(L),
+                       S[i])),
+            torch.cat((Z.repeat(L), Y.repeat(k), S[j])), 2 * L + k)
+
+
+def _tc_pairs(cuda, case):
+    """(u, v, n, h, canonical) of a TriangleCounting check on the card."""
+    from graphmat_tpu_torch.io.transforms import convert_to_upper_triangular
+    if case.startswith("rmat14_h"):
+        e = convert_to_upper_triangular(rmat_edgelist(14, 16, seed=1,
+                                                      device=cuda))
+        return (e.src.long() - 1, e.dst.long() - 1, e.n,
+                int(case[len("rmat14_h"):]), True)
+    if case == "rmat12_all_core":
+        e = convert_to_upper_triangular(rmat_edgelist(12, 16, seed=1,
+                                                      device=cuda))
+        return e.src.long() - 1, e.dst.long() - 1, e.n, 4096, True
+    if case == "tail_hub":
+        return (*_tail_hub_pairs(cuda, 2100, 6), 64, True)
+    rng = np.random.default_rng(6)
+    u = torch.as_tensor(rng.integers(0, 90, 700), device=cuda)
+    v = torch.as_tensor(rng.integers(0, 90, 700), device=cuda)
+    return u, v, 90, None, False   # "n90_w3": W = 3 words, padded to 4
+
+
+@pytest.mark.parametrize("case", ["rmat14_h0", "rmat14_h64", "rmat14_h128",
+                                  "rmat14_h4096", "rmat12_all_core",
+                                  "tail_hub", "n90_w3"])
+def test_triangle_kernels_match_plain(cuda, case):
+    """T1 and T2 on the device prep's arguments against their plain
+    versions, exactly; the count against the host route's."""
+    u, v, n, h, canon = _tc_pairs(cuda, case)
+    t1, *t2 = triangles._kernel_args(u, v, n, h, canon)
+    t2 = t2[0] if t2 else None
+    zeros = functools.partial(torch.zeros, n + 1, dtype=torch.int32,
+                              device=cuda)
+    before = dict(triangles.LAUNCHES)
+    got = triangles.core_count(*t1, zeros())
+    torch.cuda.synchronize()
+    assert torch.equal(got, triangles.core_count_reference(*t1, zeros()))
+    assert (triangles.LAUNCHES["core_count"] - before["core_count"]
+            == (t1[0].shape[1] > 0))   # h = 0 leaves no core to count
+    if case == "rmat12_all_core":   # n = h: every edge is core
+        assert t2 is None
+    if t2 is not None:
+        got = triangles.tail_count(*t2, zeros())
+        torch.cuda.synchronize()
+        assert torch.equal(got, triangles.tail_count_reference(*t2, zeros()))
+        assert triangles.LAUNCHES["tail_count"] == before["tail_count"] + 1
+    pv, total = triangles.count_triangles_bucketed(u, v, n, h=h,
+                                                   assume_canonical=canon)
+    pv_h, total_h = triangles.count_triangles_bucketed(
+        u, v, n, h=h, assume_canonical=canon, impl="host")
+    assert total == total_h and torch.equal(pv, pv_h)
+    if case == "tail_hub":
+        assert total == 15 * 2100 + 20
+
+
+def test_triangle_kernels_on_the_empty_graph(cuda):
+    e = torch.zeros(0, dtype=torch.int64, device=cuda)
+    pv, total = triangles.count_triangles_bucketed(e, e, 100)
+    assert total == 0 and pv.shape == (100,) and not bool(pv.any())
+
+
+@pytest.mark.parametrize("permute", [False, "degree"])
+@pytest.mark.parametrize("method", ["engine", "bucketed", "auto"])
+def test_triangle_counting_on_cuda_matches_cpu(cuda, method, permute):
+    e = gt.load_edgelist(os.path.join(os.path.dirname(__file__), "..",
+                                      "data", "2_10_upper_triangle.bin.mtx"))
+    from graphmat_tpu_torch.apps import triangle_counting as tc
+    want, total = tc.run_triangle_counting(
+        gt.Graph(e, permute=permute, device="cpu"), method=method)
+    got, total_c = tc.run_triangle_counting(
+        gt.Graph(e, permute=permute, device=cuda), method=method)
+    assert total_c == total == 17158
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("permute", [False, "degree"])
+def test_get_neighbors_on_cuda_matches_cpu(cuda, permute):
+    from graphmat_tpu_torch.apps.get_neighbors import run_get_neighbors
+    from graphmat_tpu_torch.utils.generators import random_edgelist
+    e = random_edgelist(3000, 6, seed=5)
+    want = run_get_neighbors(gt.Graph(e, permute=permute, device="cpu"))
+    got = run_get_neighbors(gt.Graph(e, permute=permute, device=cuda))
+    np.testing.assert_array_equal(got, want)

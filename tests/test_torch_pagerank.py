@@ -180,7 +180,7 @@ def test_vertex_api_matches_jax():
 
 
 def test_engine_for_rejects_other_graphs():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         gt.engine_for(tpr.PageRankProgram(), object())
 
 

@@ -1,0 +1,331 @@
+"""TriangleCounting in the port against the JAX package on the CPU, with
+the same numpy inputs: ``count_triangles_bucketed`` on both preps (the
+device prep's edge planes, stats vector and group shapes too, and the
+host prep's metadata), the plain versions of the two kernels (T1, the
+core count; T2, the tail count) against brute-force numpy counts, and
+``run_triangle_counting`` on its three routes, its CLI and the golden
+fixture.  The JAX side runs XLA only (no Pallas kernel reaches a
+triangle count).  Counts are integers: every comparison is exact.
+"""
+
+import contextlib
+import io
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import graphmat_tpu as gj
+from graphmat_tpu.apps import triangle_counting as jtc
+from graphmat_tpu.io.transforms import convert_to_upper_triangular
+from graphmat_tpu.ops import triangles as jtri
+from graphmat_tpu.utils.generators import (random_edgelist,
+                                           upper_triangular_edgelist)
+
+import graphmat_tpu_torch as gt
+from graphmat_tpu_torch.apps import triangle_counting as ttc
+from graphmat_tpu_torch.ops import triangles as ttri
+from graphmat_tpu_torch.ops.neighbors import PAD_ID
+
+from test_golden import fixture, gold
+
+_JAX = {}
+
+
+def _random(seed, n, m, loops=0):
+    rng = np.random.default_rng(seed)
+    s, r = rng.integers(0, n, m), rng.integers(0, n, m)
+    return np.r_[s, np.arange(loops)], np.r_[r, np.arange(loops)]
+
+
+def _hubs(n=1500, m=60000):
+    """Power-law receivers, duplicates and self loops (the JAX test's)."""
+    rng = np.random.default_rng(5)
+    s = rng.integers(0, n, m)
+    r = (rng.zipf(1.4, m) - 1) % n
+    return np.r_[s, s[:500], np.arange(50)], np.r_[r, r[:500], np.arange(50)]
+
+
+def _canonical(s, r, n):
+    key = np.unique(np.minimum(s, r) * n + np.maximum(s, r))
+    key = key[key // n != key % n]
+    return key // n, key % n
+
+
+def _tail_hub(L=120, k=5):
+    """K_{Y,Z} on L + L vertices and a k-clique S joined to all of Y: at a
+    small core the clique's senders carry tail lists of about L ids."""
+    Y, Z, S = np.arange(L), L + np.arange(L), 2 * L + np.arange(k)
+    i, j = np.triu_indices(k, 1)
+    return (np.r_[np.repeat(Y, L), np.repeat(S, L), S[i]],
+            np.r_[np.tile(Z, L), np.tile(Y, k), S[j]])
+
+
+def _case(name):
+    """(s, r, n, h, canonical) of a named case."""
+    if name.startswith("random"):   # duplicates and self loops
+        s, r = _random(3, 900, 12000, loops=30)
+        h = {"random": None, "random_h64": 64, "random_h128": 128,
+             "random_h0_all_tail": 0}[name]
+        return s, r, 900, h, False
+    if name == "canonical_h64":
+        s, r = _random(3, 900, 12000, loops=30)
+        return (*_canonical(s, r, 900), 900, 64, True)
+    if name.startswith("hubs"):
+        return (*_hubs(), 1500, 64 if name == "hubs_h64" else None, False)
+    if name == "h4096_n6000":   # a core smaller than the graph
+        rng = np.random.default_rng(4)
+        s = rng.integers(0, 6000, 40000)
+        r = (rng.zipf(1.3, 40000) - 1) % 6000
+        return s, r, 6000, 4096, False
+    if name == "tail_hub_h16":
+        return (*_tail_hub(), 245, 16, True)
+    if name == "n90_w3":   # W = 3 words, padded to 4
+        return (*_random(6, 90, 700), 90, None, False)
+    assert name == "empty"
+    return np.zeros(0, np.int64), np.zeros(0, np.int64), 10, None, False
+
+
+CASES = ["random", "random_h64", "random_h128", "random_h0_all_tail",
+         "canonical_h64", "hubs", "hubs_h64", "h4096_n6000",
+         "tail_hub_h16", "n90_w3", "empty"]
+
+
+def _jax_counts(name):
+    if name not in _JAX:
+        s, r, n, h, canon = _case(name)
+        out = {}
+        for impl in ("device", "host"):
+            pv, total = jtri.count_triangles_bucketed(
+                s, r, n, h=h, assume_canonical=canon, impl=impl)
+            out[impl] = (np.asarray(pv), total)
+        _JAX[name] = out
+    return _JAX[name]
+
+
+@pytest.mark.parametrize("impl", ["device", "host"])
+@pytest.mark.parametrize("name", CASES)
+def test_count_matches_jax(name, impl):
+    s, r, n, h, canon = _case(name)
+    want_pv, want = _jax_counts(name)[impl]
+    pv, total = ttri.count_triangles_bucketed(
+        torch.as_tensor(s), torch.as_tensor(r), n, h=h,
+        assume_canonical=canon, impl=impl)
+    assert total == want
+    assert pv.dtype == torch.int32 and pv.shape == (n,)
+    np.testing.assert_array_equal(pv.numpy(), want_pv)
+    # both preps give the same counts, in both packages
+    np.testing.assert_array_equal(pv.numpy(),
+                                  _jax_counts(name)["device"][0])
+
+
+@pytest.mark.parametrize("name", ["random", "random_h64", "canonical_h64",
+                                  "hubs_h64", "tail_hub_h16",
+                                  "random_h0_all_tail"])
+def test_device_prep_planes_stats_and_groups_match_jax(name):
+    """The first half of the device prep gives JAX's edge planes and stats
+    vector bit for bit, and the host seam the same static shapes."""
+    s, r, n, h, canon = _case(name)
+    h = ttri.CORE_H if h is None else h
+    uv = jnp.asarray(np.stack([s, r]).astype(np.int32))
+    want = jtri._tc_stats(uv, n, h, canon)
+    got = ttri._tc_stats(torch.as_tensor(s).long(),
+                         torch.as_tensor(r).long(), n, h, canon)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    ncr, mats_size, _, groups = jtri._group_cfg(want[-1], h, n)
+    assert ttri._group_cfg(got[-1]) == (ncr, mats_size,
+                                        sum(g[3] for g in groups))
+
+
+@pytest.mark.parametrize("name", ["random_h64", "hubs_h64", "tail_hub_h16"])
+def test_host_prep_matches_jax(name):
+    s, r, n, h, canon = _case(name)
+    _, want = jtri._prep(s, r, n, h=h, assume_canonical=canon)
+    host = ttri._prep(s, r, n, h=h, assume_canonical=canon)
+    got = ttri._tc_prep_numpy(s, r, n, ttri.CORE_H if h is None else h,
+                              canon)
+    assert len(host["groups"]) == want["n_groups"] >= 1
+    for k in ("m", "ncr", "W"):
+        assert got[k] == want[k]
+    for k in ("odeg", "t_of"):
+        np.testing.assert_array_equal(got[k], want[k])
+    for mat in host["mats"]:   # T2 searches sorted lists
+        assert (np.diff(mat.astype(np.int64), axis=1) >= 0).all()
+
+
+def test_kernel_args_give_the_count():
+    """T1 and T2 on ``_kernel_args`` (what the card's checks hold against
+    the plain versions) add up to the count."""
+    s, r, n, h, canon = _case("random_h64")
+    u, v = torch.as_tensor(s).long(), torch.as_tensor(r).long()
+    t1, t2 = ttri._kernel_args(u, v, n, h, canon)
+    pv = ttri.core_count(*t1, torch.zeros(n + 1, dtype=torch.int32))
+    ttri.tail_count(*t2, pv)
+    want, total = ttri.count_triangles_bucketed(u, v, n, h=h)
+    np.testing.assert_array_equal(pv[:n].numpy(), want.numpy())
+    assert int(pv.sum()) == total
+
+
+def _popcount_and(a, b):
+    x = (a & b).astype(np.uint32).view(np.uint8)
+    return np.unpackbits(x, axis=1).sum(1)
+
+
+@pytest.mark.parametrize("w4", [4, 8, 128])
+def test_core_count_plain_version_against_brute_force(w4):
+    rng = np.random.default_rng(w4)
+    rows, e, nacc = 40, 3000, 25
+    bm = rng.integers(0, 2 ** 32, (rows, w4), dtype=np.uint64)
+    bm = bm.astype(np.uint32)
+    bm[:, 0] |= np.uint32(1 << 31)   # bit 31 in every row
+    bm[-1] = 0                        # the zero row
+    iu = rng.integers(0, rows, e).astype(np.int32)
+    iv = rng.integers(0, rows, e).astype(np.int32)
+    s = rng.integers(0, nacc, e).astype(np.int32)
+    want = np.zeros(nacc, np.int64)
+    np.add.at(want, s, _popcount_and(bm[iu], bm[iv]))
+    pv = ttri.core_count(torch.as_tensor(bm.view(np.int32)),
+                         torch.as_tensor(iu), torch.as_tensor(iv),
+                         torch.as_tensor(s),
+                         torch.zeros(nacc, dtype=torch.int32))
+    np.testing.assert_array_equal(pv.numpy(), want)
+
+
+@pytest.mark.parametrize("ordered", [True, False])
+def test_tail_count_plain_version_against_brute_force(ordered):
+    """Duplicate-free lists padded to their class width, sorted (as T2
+    takes them) or not (the plain version takes any)."""
+    rng = np.random.default_rng(7 + ordered)
+    ladder = (8, 32, 256)
+    lists, starts, cls = [], [], []
+    flat = []
+    for _ in range(60):
+        c = rng.integers(0, 3)
+        k = rng.integers(0, ladder[c] + 1)
+        ids = rng.choice(300, k, replace=False).astype(np.int32)
+        if ordered:
+            ids = np.sort(ids)
+        row = np.full(ladder[c], PAD_ID, np.int32)
+        row[:k] = ids
+        starts.append(sum(len(x) for x in flat))
+        flat.append(row)
+        lists.append(set(ids.tolist()))
+        cls.append(c)
+    mats = np.concatenate(flat)
+    p = 400
+    a, b = rng.integers(0, 60, p), rng.integers(0, 60, p)
+    gk = np.array([cls[i] * 3 + cls[j] for i, j in zip(a, b)], np.int32)
+    sp = rng.integers(0, 20, p).astype(np.int32)
+    want = np.zeros(20, np.int64)
+    np.add.at(want, sp, [len(lists[i] & lists[j]) for i, j in zip(a, b)])
+    order = np.argsort(gk, kind="stable")   # probes come sorted by pair
+    starts = np.asarray(starts, np.int32)
+    pv = ttri.tail_count(torch.as_tensor(mats), ladder,
+                         *(torch.as_tensor(x[order]) for x in
+                           (gk, starts[a], starts[b], sp)),
+                         torch.zeros(20, dtype=torch.int32))
+    np.testing.assert_array_equal(pv.numpy(), want)
+
+
+def test_kernel_wrappers_check_their_arguments():
+    z = torch.zeros(4, dtype=torch.int32)
+    bm = torch.zeros((2, 4), dtype=torch.int32)
+    with pytest.raises(TypeError):
+        ttri.core_count(bm.long(), z, z, z, z)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        ttri.core_count(torch.zeros((2, 3), dtype=torch.int32), z, z, z, z)
+    with pytest.raises(ValueError, match="one length"):
+        ttri.core_count(bm, z, z[:3], z, z)
+    with pytest.raises(ValueError, match="ladder"):
+        ttri.tail_count(z, [], z, z, z, z, z)
+    with pytest.raises(ValueError, match="impl"):
+        ttri.count_triangles_bucketed(z, z, 4, impl="native")
+
+
+def test_count_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="pass CPU tensors"):
+        ttri.count_triangles_bucketed(np.zeros(1), np.ones(1), 2)
+
+
+def _tc_graph(name):
+    if name == "complete10":
+        return upper_triangular_edgelist(10)
+    if name == "fixture_2_10":
+        return gj.load_edgelist(fixture("2_10_upper_triangle.bin.mtx"))
+    seed, n, deg = {"random25": (13, 25, 5), "random40_13": (13, 40, 6),
+                    "random40_99": (99, 40, 6)}[name]
+    return convert_to_upper_triangular(random_edgelist(n, deg, seed=seed))
+
+
+@pytest.mark.parametrize("method", ["engine", "bucketed", "auto"])
+@pytest.mark.parametrize("name", ["complete10", "random25", "random40_13",
+                                  "random40_99", "fixture_2_10"])
+def test_run_triangle_counting_matches_jax(name, method):
+    e = _tc_graph(name)
+    want_tri, want = jtc.run_triangle_counting(gj.Graph(e), method=method)
+    tri, total = ttc.run_triangle_counting(gt.Graph(e, device="cpu"),
+                                           method=method)
+    assert total == want
+    n = max(e.m, e.n)
+    assert tri.shape == (n,)
+    np.testing.assert_array_equal(tri, np.asarray(want_tri)[:n])
+    if name == "complete10":
+        assert total == 10 * 9 * 8 // 6
+    if name == "fixture_2_10":
+        golden = re.search(r"Total triangles = (\d+)", gold("tc_2_10.txt"))
+        assert total == int(golden[1])
+
+
+@pytest.mark.parametrize("method", ["engine", "bucketed"])
+def test_per_vertex_counts_in_original_order_on_a_permuted_graph(method):
+    """ROADMAP R5: the JAX bucketed route returns its counts in internal
+    order; the port returns original order on every route.  A degree-
+    permuted port run equals JAX's bucketed run on the same permuted graph
+    mapped through ``perm``, and every route's total is the same."""
+    e = convert_to_upper_triangular(random_edgelist(150, 8, seed=3))
+    gj_ = gj.Graph(e, permute="degree")
+    want_internal, want = jtc.run_triangle_counting(gj_, method="bucketed")
+    g = gt.Graph(e, permute="degree", device="cpu")
+    tri, total = ttc.run_triangle_counting(g, method=method)
+    assert total == want
+    _, t_eng = jtc.run_triangle_counting(gj.Graph(e, permute="degree"),
+                                         method="engine")
+    assert t_eng == want
+    if method == "bucketed":
+        perm = g.perm.numpy()
+        np.testing.assert_array_equal(perm, gj_.perm)
+        np.testing.assert_array_equal(tri, np.asarray(want_internal)[perm])
+        assert not np.array_equal(tri, np.asarray(want_internal)[:150])
+    else:
+        want_tri, _ = jtc.run_triangle_counting(
+            gj.Graph(e, permute="degree"), method="engine")
+        np.testing.assert_array_equal(tri, want_tri)
+
+
+def test_unknown_method_raises():
+    g = gt.Graph(upper_triangular_edgelist(4), device="cpu")
+    with pytest.raises(ValueError, match="method"):
+        ttc.run_triangle_counting(g, method="bucket")
+
+
+def _cli_lines(module, args, monkeypatch):
+    monkeypatch.setenv("GRAPHMAT_PLATFORM", "cpu")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        module._main(args)
+    return [ln for ln in buf.getvalue().splitlines()
+            if not ln.startswith(("Time =", "Read "))]
+
+
+def test_cli_prints_the_jax_lines_and_the_golden_total(monkeypatch):
+    args = [fixture("2_10_upper_triangle.bin.mtx")]
+    got = _cli_lines(ttc, args, monkeypatch)
+    assert got == _cli_lines(jtc, args, monkeypatch)
+    golden = re.search(r"Total triangles = (\d+)", gold("tc_2_10.txt"))
+    assert f"Total triangles = {golden[1]}" in got
+    assert _cli_lines(ttc, [], monkeypatch) == [
+        "Correct format: triangle_counting A.mtx"]
