@@ -138,6 +138,27 @@ raises and the script exits non-zero:
     device memory, T1 and T2 alone beside their bounds and plain
     versions.
 
+20. the 2D-sharded engine (``graphmat_tpu_torch.parallel``), its tiles
+    on this one card: (a) on RMAT-16 x 16, LocalMeshes of 2x2 and 2x4
+    tiles, each route against the one-device Engine on the card: K1's
+    dense sum and sparse sum with got (PageRank, 1e-5), its sparse min
+    with recv_final (BFS from 4 sources, SSSP, CC, DeltaStepping:
+    exact), the push kernel (``GRAPHMAT_KERNEL=v2``: BFS exact,
+    PageRank 1e-3), K3 (SGD at 1M ratings, LDA at 100k entries) and its
+    sparse mode (ACTIVE_ONLY SGD from a 10% frontier: the got counts and
+    the frontier exact), the segment route (CC under P4's rule) and the
+    concat route (GetNeighbors), K2 (compacted tiles bitwise the
+    uncompacted ones), each run's launches counted; (b) phase 5's RMAT-22
+    edge list: Degree + PageRank to convergence on a LocalMesh 2x2 of the
+    card and on a ProcessMesh 1x1 over NCCL (a world of one process,
+    started in this one), each within 1e-4 of the one-device Engine's;
+    (c) BFS from 8 sources on the 2x2 mesh, depths and parents equal to
+    the one-device run's; (d) the PageRank step on the 2x2 LocalMesh, the
+    1x1 ProcessMesh and one device (CUDA events, median of 5, three
+    interleaved rounds), the collectives' share of device time
+    (torch.profiler ranges around the mesh's collectives), peak device
+    memory.
+
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Phase numbers given as arguments run
 phases 1-2 and those only, without the result lines.
@@ -3101,6 +3122,475 @@ def exact_err(what, got, ref):
     return err
 
 
+# ----------------------------------------------------- the sharded engine
+
+DIST_SHAPES = ((2, 2), (2, 4))   # phase 20 (a)'s LocalMesh grids
+# of max(1, |pr|): each tile sums its part of a row and the reduce-scatter
+# sums the C partials, float32 sums in another order (ROADMAP H1); the
+# one-device run is taken to the same iteration count
+DIST_PR_RTOL = 1e-5
+DIST_SGD_ATOL = 1e-5   # float32 factors in [0, 1], sums in another order
+DIST_SOURCES = 4       # BFS sources of phase 20 (a), per mesh
+
+
+def reset_all_counts():
+    """:func:`reset_counts`, and K3's and its sparse mode's counts."""
+    from graphmat_tpu_torch.ops import spmv_vec, spmv_vec2
+    reset_counts()
+    for d in (spmv_vec2.LAUNCHES, spmv_vec.LAUNCHES):
+        for k in d:
+            d[k] = 0
+
+
+def read_all_counts():
+    """:func:`read_counts`, with K3 (``k3.<op>``) and its sparse mode
+    (``k3s.<op>``)."""
+    from graphmat_tpu_torch.ops import spmv_vec, spmv_vec2
+    out = read_counts()
+    for name, d in (("k3", spmv_vec2.LAUNCHES), ("k3s", spmv_vec.LAUNCHES)):
+        out.update({f"{name}.{op}": n for op, n in d.items() if n})
+    return out
+
+
+def need_launch(what, counts, *kernels, none_of=()):
+    """The run launched each of ``kernels`` (names or name.mode) and none
+    of ``none_of``."""
+    def n(k):
+        return sum(v for key, v in counts.items()
+                   if key == k or key.startswith(k + "."))
+    if any(n(k) == 0 for k in kernels) or any(n(k) for k in none_of):
+        raise AssertionError(f"{what}: launches {counts} (needed "
+                             f"{kernels}, none of {none_of})")
+
+
+def rel_err(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(1.0, np.abs(b)))) \
+        if a.size else 0.0
+
+
+def check_equal(what, a, b):
+    if np.shape(a) != np.shape(b) or not np.array_equal(a, b):
+        raise AssertionError(f"{what}: differs from the one-device run")
+
+
+def check_close(what, a, b, tol):
+    err = rel_err(a, b)
+    if np.shape(a) != np.shape(b) or not np.isfinite(a).all() or err > tol:
+        raise AssertionError(f"{what}: off the one-device run by {err} "
+                             f"(tolerance {tol})")
+    return err
+
+
+def sparse_counts_one_device(g, prog, state):
+    """The one-device K3 sparse mode's count per receiver (original
+    order) for ``prog``'s message from ``g``'s frontier."""
+    import torch
+    from graphmat_tpu_torch.ops.spmv_vec import spmv_vec_sparse
+    sem = prog.vec_semiring()
+    msg, _ = prog.send_message(state, g.vp)
+    sent = (g.active & g.valid_vertex).to(torch.uint8)
+    x = sem.encode(state, msg).to(torch.float32).contiguous()
+    vp = sem.encode_vp(state, g.vp).to(torch.float32).contiguous()
+    cnt = 0
+    for recv in ("dst", "src"):
+        cnt = cnt + spmv_vec_sparse(g.csr(recv), x, sem.process_op, sent,
+                                    vp=vp, params=sem.params)[1]
+    return (cnt[g.perm] if g.perm is not None else cnt[: g.n]).cpu().numpy()
+
+
+def sparse_counts_dist(gd, prog, state):
+    """The same count over the mesh: each tile's sparse-mode count,
+    reduce-scattered, through the engine (original order)."""
+    from graphmat_tpu_torch.parallel.dist_runtime import DistEngine
+    eng = DistEngine(prog, gd)
+    msgs = [prog.send_message(state, vp)[0] for vp in gd.vp]
+    sents = [a & v for a, v in zip(gd.active, gd.valid_vertex)]
+    _, counts = eng.vec_partials([state] * len(gd.local), msgs, sents,
+                                 gd.vp)
+    return gd._to_original(gd._full(counts).cpu().numpy())
+
+
+def phase_dist_routes(device, scale=16, edge_factor=16, seed=7,
+                      shapes=DIST_SHAPES, users=60_000, items=20_000,
+                      ratings=1_000_000, docs=3_000, terms=1_000,
+                      entries=100_000, k=20):
+    """Phase 20 (a): every route of the sharded engine on LocalMeshes of
+    ``[device] * R * C`` tiles, held against the one-device Engine on the
+    same device.  Returns the launches of each kernel over these runs."""
+    import torch
+    from graphmat_tpu_torch import EdgeList, Graph
+    from graphmat_tpu_torch.apps import (bfs, connected_components as cc,
+                                         delta_stepping as ds,
+                                         get_neighbors as gn, lda, pagerank,
+                                         sgd, sssp)
+    from graphmat_tpu_torch.core.runtime import Engine
+    from graphmat_tpu_torch.parallel.dist_graph import DistGraph
+    from graphmat_tpu_torch.parallel.dist_runtime import DistEngine
+    from graphmat_tpu_torch.parallel.mesh import LocalMesh
+    from graphmat_tpu_torch.utils.generators import rmat_edgelist
+    cuda = torch.device(device).type == "cuda"
+    t_start = time.perf_counter()
+    e = rmat_edgelist(scale, edge_factor, seed=seed, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    ew = EdgeList(e.m, e.n, e.src, e.dst, torch.randint(
+        1, 256, (e.nnz,), generator=gen, device=device, dtype=torch.int32))
+    er = ratings_edgelist(users, items, ratings, seed, device)
+    el = nytimes_edgelist(docs, terms, entries, seed, device)
+    n = max(e.m, e.n)
+    rng = np.random.default_rng(seed)
+    outdeg = np.bincount(e.src.cpu().numpy() - 1, minlength=n)
+    sources = (rng.choice(np.flatnonzero(outdeg > 0), DIST_SOURCES,
+                          replace=False) + 1).tolist()
+    frontier = rng.random(users + items) < 0.1
+    seg_cc = type("SegmentCC", (cc.ConnectedComponentsProgram,),
+                  {"process_requires_vertexprop": True})   # P4's rule
+    a_sgd = active_only(sgd.SGDProgram)
+
+    # the one-device references, once
+    g1 = Graph(e, device=device, permute="degree")
+    g1w = Graph(ew, device=device, permute="degree", build_in_edges=False)
+    ref = {"bfs": {s: bfs.run_bfs(g1, s)[:2] for s in sources},
+           "sssp": sssp.run_sssp(g1w, sources[0])[0],
+           "cc": cc.run_connected_components(g1)[0],
+           "ds": ds.run_delta_stepping(ew, DELTA, sources[0],
+                                       device=device)[0],
+           "gn": gn.run_get_neighbors(g1)}
+    g1s = Graph(er, device=device)
+    ref["sgd"] = sgd.run_sgd(g1s, k=k, iterations=3)
+    sgd.init_sgd_graph(g1s, k)
+    g1s.set_active_mask(frontier)
+    ref["sgd_counts"] = sparse_counts_one_device(g1s, a_sgd(k=k), 0)
+    Engine(a_sgd(k=k), g1s).run(iterations=1)
+    ref["sgd_active"] = (g1s.vp_numpy()["lv"], g1s.active_numpy())
+    ref["lda"] = lda.run_lda(Graph(el, device=device), docs, terms, k=k,
+                             iterations=3)
+
+    launches = {}
+    report = {"sources": sources, "errors": {}, "iterations": {}}
+
+    def counted(what, fn, *kernels, none_of=()):
+        reset_all_counts()
+        out = fn()
+        sync(device)
+        c = read_all_counts()
+        if cuda:
+            need_launch(what, c, *kernels, none_of=none_of)
+        for key, v in c.items():
+            launches[key] = launches.get(key, 0) + v
+        return out
+
+    for shape in shapes:
+        tag = f"{shape[0]}x{shape[1]}"
+        mesh = LocalMesh([device] * (shape[0] * shape[1]), shape)
+        gd = DistGraph(e, mesh)
+        # K1: the dense sum, and the degree pass's sparse sum with got
+        pr_d, it_d = counted(f"{tag} PageRank",
+                             lambda: pagerank.run_pagerank(gd),
+                             "k1.dense", "k1.sparse_got", none_of=("push",))
+        pr_1, _ = pagerank.run_pagerank(g1, iterations=it_d)
+        report["errors"][f"{tag} pagerank"] = check_close(
+            f"{tag} PageRank", pr_d, pr_1, DIST_PR_RTOL)
+        report["iterations"][f"{tag} pagerank"] = it_d
+        # K1's sparse min with recv_final: BFS, SSSP, CC, DeltaStepping
+        for s in sources:
+            out = counted(f"{tag} BFS {s}", lambda: bfs.run_bfs(gd, s),
+                          "k1.sparse_final")
+            check_equal(f"{tag} BFS from {s} depths", out[0],
+                        ref["bfs"][s][0])
+            check_equal(f"{tag} BFS from {s} parents", out[1],
+                        ref["bfs"][s][1])
+        gdw = DistGraph(ew, mesh, build_in_edges=False)
+        check_equal(f"{tag} SSSP", counted(
+            f"{tag} SSSP", lambda: sssp.run_sssp(gdw, sources[0]),
+            "k1.sparse")[0], ref["sssp"])
+        check_equal(f"{tag} CC", counted(
+            f"{tag} CC", lambda: cc.run_connected_components(gd),
+            "k1")[0], ref["cc"])
+        check_equal(f"{tag} DeltaStepping", counted(
+            f"{tag} DeltaStepping", lambda: ds.run_delta_stepping_dist(
+                ew, DELTA, sources[0], mesh), "k1.sparse_final")[0],
+            ref["ds"])
+        # the push kernel (GRAPHMAT_KERNEL=v2), on each tile's sender-major
+        # index
+        os.environ["GRAPHMAT_KERNEL"] = "v2"
+        try:
+            out = counted(f"{tag} BFS {sources[0]} (push)",
+                          lambda: bfs.run_bfs(gd, sources[0]),
+                          "push.sparse", none_of=("k1",))
+            check_equal(f"{tag} BFS (push)", out[0],
+                        ref["bfs"][sources[0]][0])
+            # K1's iteration count: the push's atomics change a hub's
+            # last bits every step, and above 128 its float32 ulp
+            # exceeds PageRank's 1e-5 tolerance, so a run to convergence
+            # may take thousands of steps (ROADMAP P6)
+            pr_p, it_p = counted(f"{tag} PageRank (push)",
+                                 lambda: pagerank.run_pagerank(
+                                     gd, iterations=it_d),
+                                 "push.dense", "push.sparse_got",
+                                 none_of=("k1",))
+        finally:
+            os.environ["GRAPHMAT_KERNEL"] = "v2u"
+        pr_1, _ = pagerank.run_pagerank(g1, iterations=it_p)
+        report["errors"][f"{tag} pagerank push"] = check_close(
+            f"{tag} PageRank (push)", pr_p, pr_1, DIST_PR_RTOL)
+        # K3 (SGD, LDA) and its sparse mode (ACTIVE_ONLY SGD, 10% sent)
+        gds = DistGraph(er, mesh)
+        lv, r0, r1 = counted(f"{tag} SGD", lambda: sgd.run_sgd(
+            gds, k=k, iterations=3), "k3.sgd", "k3.sgd_sqerr")
+        err = float(np.max(np.abs(lv - ref["sgd"][0])))
+        if err > DIST_SGD_ATOL or rel_err([r0, r1], ref["sgd"][1:]) > \
+                SGD_RMSE_RTOL:
+            raise AssertionError(f"{tag} SGD: off the one-device run by "
+                                 f"{err}")
+        report["errors"][f"{tag} sgd"] = err
+        sgd.init_sgd_graph(gds, k)
+        gds.set_active_mask(frontier)
+        check_equal(f"{tag} ACTIVE_ONLY SGD got counts", counted(
+            f"{tag} sparse counts", lambda: sparse_counts_dist(
+                gds, a_sgd(k=k), 0), "k3s.sgd"), ref["sgd_counts"])
+        counted(f"{tag} ACTIVE_ONLY SGD", lambda: DistEngine(
+            a_sgd(k=k), gds).run(iterations=1), "k3s.sgd")
+        err = float(np.max(np.abs(gds.vp_numpy()["lv"]
+                                  - ref["sgd_active"][0])))
+        if err > DIST_SGD_ATOL:
+            raise AssertionError(f"{tag} ACTIVE_ONLY SGD: off by {err}")
+        check_equal(f"{tag} ACTIVE_ONLY SGD frontier", gds.active_numpy(),
+                    ref["sgd_active"][1])
+        n_d, _, ll_d = counted(f"{tag} LDA", lambda: lda.run_lda(
+            DistGraph(el, mesh), docs, terms, k=k, iterations=3),
+            "k3.lda", "k3.lda_init", "k3.lda_loglik")
+        report["errors"][f"{tag} lda"] = check_close(
+            f"{tag} LDA N", n_d, ref["lda"][0], LDA_N_RTOL)
+        check_close(f"{tag} LDA log-likelihood", [ll_d], [ref["lda"][2]],
+                    LDA_LL_RTOL)
+        # the segment route (P4's rule) and the concat route
+        check_equal(f"{tag} segment-route CC", counted(
+            f"{tag} segment CC", lambda: engine_run_labels(gd, seg_cc),
+            none_of=("k1", "push")), ref["cc"])
+        nb = counted(f"{tag} GetNeighbors",
+                     lambda: gn.run_get_neighbors(gd),
+                     none_of=("k1", "push"))
+        w = ref["gn"].shape[1]
+        check_equal(f"{tag} GetNeighbors", nb[:, :w], ref["gn"])
+        if not (nb[:, w:] == gn.PAD_ID).all():
+            raise AssertionError(f"{tag} GetNeighbors: extra ids past the "
+                                 "one-device width")
+        # K2: compacted tiles give the uncompacted tiles' results bitwise
+        gdc = DistGraph(e, mesh, compact=True,
+                        compact_kw=dict(hub=0, divert_min=1 << 30, w_div=1))
+        pr_c, it_c = counted(f"{tag} PageRank (compacted)",
+                             lambda: pagerank.run_pagerank(gdc),
+                             "k2", "k1.dense")
+        if it_c != it_d:
+            raise AssertionError(f"{tag} compacted PageRank: {it_c} "
+                                 f"iterations, uncompacted {it_d}")
+        check_equal(f"{tag} compacted PageRank", pr_c, pr_d)
+        out = counted(f"{tag} BFS (compacted)",
+                      lambda: bfs.run_bfs(gdc, sources[0]), "k2")
+        check_equal(f"{tag} compacted BFS", out[0],
+                    ref["bfs"][sources[0]][0])
+        del gd, gdw, gds, gdc
+    report["launches"] = launches
+    report["seconds"] = time.perf_counter() - t_start
+    log("phase 20 (a): " + json.dumps(report))
+    return launches
+
+
+def engine_run_labels(g, prog_cls):
+    """CC's labels from ``prog_cls`` (another route for the same
+    program)."""
+    from graphmat_tpu_torch.core.runtime import engine_for
+    g.init_vertexproperty(label=np.arange(1, g.n + 1, dtype=np.int32))
+    g.set_all_active()
+    engine_for(prog_cls(), g).run()
+    return g.vp_numpy()["label"]
+
+
+def annotate_mesh(mesh):
+    """Wrap ``mesh``'s collectives in profiler ranges ``mesh.<name>``, so
+    that a trace can sum the device time spent in them."""
+    from torch.profiler import record_function
+    for name in ("all_gather", "reduce_scatter", "all_to_all",
+                 "all_reduce"):
+        def wrapped(*a, _fn=getattr(mesh, name), _name=name, **kw):
+            with record_function(f"mesh.{_name}"):
+                return _fn(*a, **kw)
+        setattr(mesh, name, wrapped)
+
+
+def profile_steps(fn, steps=5, warm=2):
+    """``fn`` under torch.profiler, ``warm`` traced steps discarded (the
+    first steps of a window lost device events in two of three phase-20
+    runs) and then ``steps`` kept, each ended by a synchronize; per kept
+    step: wall ms, device ms (kernels, copies, fills), the device's idle
+    share, the device time in the annotated mesh collectives
+    (:func:`annotate_mesh`: the copies between tiles and the partial sums
+    of a LocalMesh, the NCCL kernels of a ProcessMesh) and its share, and
+    the top device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=warm, active=steps,
+                                   repeat=1)) as prof:
+        for i in range(warm + steps):
+            if i == warm:
+                t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    rows, mesh_ms = [], {}
+    for ev in prof.key_averages():
+        cuda = ev.device_type == torch.autograd.DeviceType.CUDA
+        if ev.key.startswith("ProfilerStep"):
+            continue   # the schedule's step range, not a kernel
+        if ev.key.startswith("mesh."):
+            if not cuda:   # its kernels' time; on the card, its span
+                mesh_ms[ev.key] = getattr(ev, "device_time_total", getattr(
+                    ev, "cuda_time_total", 0)) / 1e3 / steps
+            continue
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0)) if cuda else 0
+        if us > 0:
+            rows.append((us / 1e3 / steps, ev.count / steps, ev.key[:70]))
+    rows.sort(reverse=True)
+    dev = sum(r[0] for r in rows)
+    if dev == 0:
+        return {"wall_ms": wall, "device_ms": "not measured"}
+    return {"wall_ms": wall, "device_ms": dev,
+            "device_idle_share": max(0.0, 1 - dev / wall),
+            "collectives_ms": mesh_ms,
+            "collectives_share": sum(mesh_ms.values()) / dev,
+            "top": [{"kernel": k, "ms": ms, "count": c}
+                    for ms, c, k in rows[:6]]}
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_dist_slice(device, card, e=None, scale=22, edge_factor=16, seed=1,
+                     n_sources=N_SOURCES, rounds=3):
+    """Phase 20 (b)-(d): the main path at full width on a LocalMesh 2x2 of
+    the one card and on a ProcessMesh 1x1 over NCCL (a world of one
+    process, started here), each against the one-device Engine's
+    PageRank; BFS from ``n_sources`` sources on the 2x2 mesh against the
+    one-device BFS; step times, the collectives' share, peak memory.
+    ``e`` is phase 5's edge list (made here when phase 5 did not run).
+    Returns the K1 launches of the main-path runs."""
+    import torch
+    import torch.distributed as dist
+    from graphmat_tpu_torch import Graph
+    from graphmat_tpu_torch.apps import bfs, pagerank
+    from graphmat_tpu_torch.core.runtime import Engine
+    from graphmat_tpu_torch.parallel.dist_graph import DistGraph
+    from graphmat_tpu_torch.parallel.dist_runtime import DistEngine
+    from graphmat_tpu_torch.parallel.mesh import LocalMesh, ProcessMesh
+    from graphmat_tpu_torch.parallel.multihost import initialize
+    from graphmat_tpu_torch.utils.generators import rmat_edgelist
+    if e is None:
+        e = rmat_edgelist(scale, edge_factor, a=0.57, b=0.19, c=0.19,
+                          seed=seed, device=device)
+    out = {"card": card, "nnz": e.nnz}
+    g1 = Graph(e, device=device, permute="degree")
+    pr_1, it_1 = pagerank.run_pagerank(g1)
+    out["iterations"] = {"one_device": it_1}
+    k1 = {}
+
+    def main_path(name, g):
+        reset_all_counts()
+        t0 = time.perf_counter()
+        pr, it = pagerank.run_pagerank(g)
+        sync(device)
+        out.setdefault("run_pagerank_s", {})[name] = \
+            time.perf_counter() - t0
+        c = read_all_counts()
+        if cuda:
+            need_launch(f"{name} PageRank", c, "k1.dense", "k1.sparse_got",
+                        none_of=("push",))
+        for key, v in c.items():
+            k1[key] = k1.get(key, 0) + v
+        out["iterations"][name] = it
+        out.setdefault("rel_err", {})[name] = check_close(
+            f"{name} PageRank", pr, pr_1, ORACLE_RTOL)
+
+    cuda = torch.device(device).type == "cuda"   # else a CPU rehearsal
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        out["bytes_before_2x2"] = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    mesh = LocalMesh([device] * 4, (2, 2))
+    g22 = DistGraph(e, mesh)
+    sync(device)
+    out["build_s"] = {"2x2": time.perf_counter() - t0}
+    main_path("2x2", g22)
+    if cuda:
+        out["peak_bytes_2x2"] = torch.cuda.max_memory_allocated()
+
+    # (c) BFS on the 2x2 mesh against the one-device BFS
+    rng = np.random.default_rng(2)
+    outdeg = np.bincount(e.src.cpu().numpy() - 1, minlength=g1.n)
+    sources = (rng.choice(np.flatnonzero(outdeg > 0), n_sources,
+                          replace=False) + 1).tolist()
+    levels = {}
+    for s in sources:
+        reset_all_counts()
+        d, p, it = bfs.run_bfs(g22, s)
+        if cuda:
+            need_launch(f"2x2 BFS {s}", read_all_counts(),
+                        "k1.sparse_final")
+        d1, p1, it1 = bfs.run_bfs(g1, s)
+        check_equal(f"2x2 BFS from {s} depths", d, d1)
+        check_equal(f"2x2 BFS from {s} parents", p, p1)
+        levels[s] = (it, it1)
+    out["bfs_levels_dist_one_device"] = levels
+
+    # the ProcessMesh over NCCL, a world of one
+    initialize(f"127.0.0.1:{free_port()}", num_processes=1, process_id=0,
+               device=device)
+    try:
+        pmesh = ProcessMesh((1, 1), device=torch.device(device))
+        t0 = time.perf_counter()
+        g11 = DistGraph(e, pmesh)
+        sync(device)
+        out["build_s"]["1x1 nccl"] = time.perf_counter() - t0
+        main_path("1x1 nccl", g11)
+        if not cuda:
+            return k1
+
+        # (d) the PageRank step on each, CUDA events, interleaved rounds;
+        # degrees and a live pagerank first (the BFS runs replaced them)
+        for g in (g1, g22, g11):
+            pagerank.run_pagerank(g, iterations=1)
+        engines = {"one_device": Engine(pagerank.PageRankProgram(), g1),
+                   "2x2": DistEngine(pagerank.PageRankProgram(), g22),
+                   "1x1 nccl": DistEngine(pagerank.PageRankProgram(), g11)}
+        step = {name: [] for name in engines}
+        for _ in range(rounds):
+            for name, eng in engines.items():
+                step[name].append(event_ms(eng.step_once, 5))
+        out["step_ms"] = step
+        out["gteps"] = {name: e.nnz / (min(v) * 1e-3) / 1e9
+                        for name, v in step.items()}
+        annotate_mesh(mesh)
+        annotate_mesh(pmesh)
+        out["profile"] = {name: profile_steps(eng.step_once)
+                          for name, eng in engines.items()}
+        out["peak_bytes_all"] = torch.cuda.max_memory_allocated()
+    finally:
+        dist.destroy_process_group()
+    out["launches"] = k1
+    log(f"phase 20 (b-d) ({card}): " + json.dumps(out))
+    return k1
+
+
 def kernel_record(name, source, replaces, launches, err, ms, plain_ms,
                   bound_ms, bound_by, library_ms):
     return {"name": name, "route": "cuda", "source": source,
@@ -3150,7 +3640,9 @@ def main(argv=None):
     if want(6):
         t, k1_err_slice = phase_timings(e, g, card)
         k1_err = max(k1_err, k1_err_slice)
+    e_slice = None   # phase 5's RMAT-22 edge list, kept for phase 20
     if want(5):
+        e_slice = e
         del e, g
 
     if want(7):
@@ -3205,6 +3697,11 @@ def main(argv=None):
         phase_tc_golden()
         tc_run = phase_tc_slice("cuda")
         t6 = phase_tc_timings(card)
+    dist_b = {}
+    if want(20):
+        phase_dist_routes("cuda")
+        dist_b = phase_dist_slice("cuda", card, e=e_slice)
+    del e_slice
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     if only:
         return
@@ -3213,7 +3710,9 @@ def main(argv=None):
         """Launches of ``kernel`` over phase 14's runs."""
         return sum(launches(c, kernel) for routes in
                    trav["launches"].values() for c in routes.values())
-    k1_path = sum(k1.values()) + total("k1")
+    # phase 20 (b): the sharded main path's runs launch K1 on tiles; the
+    # checks of phase 20 (a) are not the main path and count nowhere here
+    k1_path = sum(k1.values()) + total("k1") + launches(dist_b, "k1")
     k2_path = k2["aux_gather"] + total("k2")
     log(card)
     pd = t4["push_dense_sum"]
@@ -3252,7 +3751,8 @@ def main(argv=None):
         kernel_record(
             "spmv_vec2_sparse", "graphmat_tpu_torch/csrc/spmv_vec2.cu",
             "graphmat_tpu/ops/pallas_spmv_vec.py:65",
-            sum(k4_path.values()), k4_err, sp["ms"], sp["plain_ms"],
+            sum(k4_path.values()), k4_err,
+            sp["ms"], sp["plain_ms"],
             sp["bound_ms"], sp["bound_by"], None),
         # K5: fused into every sparse-mode launch as its got count; timed
         # alone as K1 with op x over the sent bits of a 10% frontier
@@ -3261,7 +3761,8 @@ def main(argv=None):
             "graphmat_tpu_torch/csrc/spmv_vec2.cu and "
             "graphmat_tpu_torch/csrc/spmv2u.cu",
             "graphmat_tpu/ops/pallas_spmv.py:254",
-            sum(k4_path.values()), k5_err, k5t["ms"], k5t["plain_ms"],
+            sum(k4_path.values()), k5_err,
+            k5t["ms"], k5t["plain_ms"],
             k5t["bound_ms"], "bytes", k5t["cusparse_ms"]),
         # T1 and T2 at RMAT-22: TriangleCounting's two hot loops, which
         # the JAX package runs as XLA ops; no PyTorch call computes either

@@ -4,7 +4,20 @@
 
 ``GRAPHMAT_PLATFORM`` picks the device: ``cuda`` (the default) or ``cpu``.
 With no GPU the default raises; the CPU runs only when asked for.
-``GRAPHMAT_MESH`` (a sharded run) is not ported yet and raises.
+
+A sharded run keeps the same CLI, as the JAX package's does:
+``GRAPHMAT_MESH=RxC`` (e.g. ``2x2``) builds the graph 2D-sharded over an
+R x C mesh, ``GRAPHMAT_MESH=auto`` over every device.  Under ``torchrun``
+(``WORLD_SIZE`` > 1) each process holds one tile (a ``ProcessMesh``; R x
+C must equal the world size)::
+
+    GRAPHMAT_MESH=2x2 torchrun --nproc_per_node=4 \
+        -m graphmat_tpu_torch.apps.pagerank A.mtx
+
+In one process the tiles go on the visible cards, one each (a
+``LocalMesh``; R x C may not exceed them), or all on the CPU with
+``GRAPHMAT_PLATFORM=cpu``.  The runners pick the distributed engine from
+the graph type.
 """
 
 from __future__ import annotations
@@ -42,11 +55,37 @@ def load_graph_file(path, **kw):
 
 
 def build_graph(edgelist, **graph_kw):
-    """A one-device Graph on the device of ``GRAPHMAT_PLATFORM``."""
-    if os.environ.get("GRAPHMAT_MESH", "").strip():
-        raise NotImplementedError(
-            "GRAPHMAT_MESH: sharded graphs are not ported to "
-            "graphmat_tpu_torch yet (ROADMAP Queue 1 item 4, the "
-            "distributed engine)")
-    from ..core.graph import Graph
-    return Graph(edgelist, device=device_from_env(), **graph_kw)
+    """A Graph on the device of ``GRAPHMAT_PLATFORM``, or a DistGraph when
+    ``GRAPHMAT_MESH`` is set (unset or empty: one device)."""
+    spec = os.environ.get("GRAPHMAT_MESH", "").strip().lower()
+    device = device_from_env()
+    if not spec:
+        from ..core.graph import Graph
+        return Graph(edgelist, device=device, **graph_kw)
+    from ..parallel.dist_graph import DistGraph
+    from ..parallel.mesh import LocalMesh, ProcessMesh, factor2d, make_mesh
+    from ..parallel.multihost import initialize
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1:
+        dev = initialize(device=device)
+        ndev = world
+    else:
+        ndev = 1 if device.type == "cpu" else torch.cuda.device_count()
+    if spec == "auto":
+        shape = factor2d(ndev)
+    else:
+        try:
+            r, c = (int(x) for x in spec.split("x"))
+        except ValueError:
+            raise ValueError(f"GRAPHMAT_MESH={spec!r}: use RxC (e.g. 2x2) "
+                             "or auto") from None
+        shape = (r, c)
+    nt = shape[0] * shape[1]
+    if world > 1:
+        mesh = ProcessMesh(shape, device=dev)
+    elif device.type == "cpu":
+        mesh = LocalMesh([device] * nt, shape)
+    else:   # one tile a card; raises past the visible cards
+        mesh = make_mesh(shape=shape)
+    print(f"mesh {shape[0]}x{shape[1]} over {nt} devices")
+    return DistGraph(edgelist, mesh, **graph_kw)

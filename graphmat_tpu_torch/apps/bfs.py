@@ -244,6 +244,11 @@ def run_bfs_fast(graph: Graph, source1: int, pred0, ind1,
     be built from :func:`build_bfs_shortcuts`'s ``e_aug``.  Returns
     ``(depth[n], parent[n], niter)`` in original order: depths equal
     :func:`run_bfs`'s, parents a valid (generally different) BFS tree."""
+    if not isinstance(graph, Graph):
+        # the parent field holds the sender's row in its vertex tensor,
+        # which on a DistGraph is a segment-local offset
+        raise TypeError("run_bfs_fast takes a one-device Graph; use "
+                        "run_bfs on a DistGraph")
     bits = max(int(np.ceil(np.log2(graph.n_pad))), 1)
     prog = BFSFastProgram(bits)
     init_bfs_fast_graph(graph, source1)

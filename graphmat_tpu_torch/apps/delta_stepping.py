@@ -32,8 +32,8 @@ from ..io.edgelist import EdgeList
 from ..io.transforms import filter_edges
 from .sssp import INF_DIST, distance_semiring, saturating_add
 
-__all__ = ["DeltaSteppingProgram", "run_delta_stepping", "INF_DIST",
-           "INF_BUCKET"]
+__all__ = ["DeltaSteppingProgram", "run_delta_stepping",
+           "run_delta_stepping_dist", "INF_DIST", "INF_BUCKET"]
 
 INF_BUCKET = np.iinfo(np.int32).max
 
@@ -108,6 +108,50 @@ def run_delta_stepping(edges: EdgeList, delta: int, source1: int,
         bid += 1
         bucket = g.vp["bucket"]
         if not bool(((bucket >= bid) & (bucket < INF_BUCKET)).any()):
+            break
+        if bid >= max_buckets:
+            raise RuntimeError("delta-stepping did not terminate")
+    return g.vp_numpy()["distance"], bid
+
+
+def run_delta_stepping_dist(edges: EdgeList, delta: int, source1: int,
+                            mesh, max_buckets: int = 1_000_000,
+                            seg_align: int = 128):
+    """2D-sharded delta-stepping (JAX ``delta_stepping.py:120-160``): two
+    DistGraphs (light and heavy) over one mesh sharing the vertex-property
+    store, and the same outer bucket loop.  Returns ``(distance[n],
+    nbuckets)``."""
+    from ..parallel.dist_graph import DistGraph
+    from ..parallel.dist_runtime import DistEngine
+
+    light = filter_edges(edges, lambda s, d, v: v <= delta)
+    heavy = filter_edges(edges, lambda s, d, v: v > delta)
+
+    g = DistGraph(light, mesh, build_in_edges=False, seg_align=seg_align)
+    # the heavy graph MUST share g's permutation: an auto permute of its
+    # own would misalign the shared properties
+    g2 = DistGraph(heavy, mesh, build_in_edges=False, seg_align=seg_align,
+                   permute=g.perm if g.perm is not None else False)
+    g.init_vertexproperty(distance=np.int32(INF_DIST),
+                          bucket=np.int32(INF_BUCKET))
+    g2.share_vertex_property(g)
+
+    g.set_vertexproperty(source1, distance=0, bucket=0)
+    g.set_active(source1)
+
+    prog = DeltaSteppingProgram(delta)
+    eng_light = DistEngine(prog, g)
+    eng_heavy = DistEngine(prog, g2)
+
+    bid = 0
+    while True:
+        g.set_all_active()
+        eng_light.run(iterations=UNTIL_CONVERGENCE, state=bid)
+        g2.set_all_active()
+        eng_heavy.run(iterations=1, state=bid)
+        bid += 1
+        bucket = g.vp_numpy()["bucket"]
+        if not ((bucket >= bid) & (bucket < INF_BUCKET)).any():
             break
         if bid >= max_buckets:
             raise RuntimeError("delta-stepping did not terminate")

@@ -99,6 +99,14 @@ class TopSortProgram(GraphProgram):
         return _count_semiring()
 
 
+def _seed_sources(vp, valid):
+    """Order 0 and the frontier: the valid vertices of in-degree 0."""
+    seeds = (vp["in_degree"] == 0) & valid
+    return ({**vp, "topsort_order": torch.where(seeds, 0,
+                                                 vp["topsort_order"])},
+            seeds)
+
+
 def run_topological_sort(graph: Graph,
                          iterations: int = UNTIL_CONVERGENCE):
     """Returns ``(order[n], has_cycle, niter)``: 0 for sources, increasing
@@ -107,10 +115,13 @@ def run_topological_sort(graph: Graph,
                               in_degree=np.int32(0))
     engine_for(InDegreeProgram(), graph).run(iterations=1)
 
-    seeds = (graph.vp["in_degree"] == 0) & graph.valid_vertex
-    graph.vp = {**graph.vp, "topsort_order": torch.where(
-        seeds, 0, graph.vp["topsort_order"])}
-    graph.active = seeds
+    if isinstance(graph, Graph):
+        graph.vp, graph.active = _seed_sources(graph.vp, graph.valid_vertex)
+    else:   # a DistGraph: one property dict per local segment
+        seeded = [_seed_sources(vp, valid) for vp, valid in
+                  zip(graph.vp, graph.valid_vertex)]
+        graph.vp = [vp for vp, _ in seeded]
+        graph.active = [act for _, act in seeded]
     niter = engine_for(TopSortProgram(), graph).run(iterations=iterations)
     order = graph.vp_numpy()["topsort_order"]
     return order, bool((order == INF_ORDER).any()), niter

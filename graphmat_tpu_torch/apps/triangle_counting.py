@@ -69,7 +69,12 @@ def run_triangle_counting(graph: Graph, max_degree_pad: int | None = None,
     ``"bucketed"`` counts the dst direction's edges (internal ids) with
     :func:`~graphmat_tpu_torch.ops.triangles.count_triangles_bucketed`;
     ``"auto"`` takes the engine up to an out-degree of 1024 and the
-    bucketed route above."""
+    bucketed route above.  Both read a one-device Graph: the JAX package
+    has no sharded route for TriangleCounting either."""
+    if not isinstance(graph, Graph):
+        raise TypeError("run_triangle_counting takes a one-device Graph "
+                        f"(got {type(graph).__name__}); unset "
+                        "GRAPHMAT_MESH")
     if method == "auto":
         method = ("engine" if max_degree(graph, "src") <= AUTO_MAX_DEGREE
                   else "bucketed")

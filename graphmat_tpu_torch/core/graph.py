@@ -117,24 +117,25 @@ class _VpRef:
         self.vp = vp
 
 
-def _build_csr(senders, receivers, vals, n_pad: int, compact,
-               compact_kw) -> CSR:
-    """Sort 0-based COO (int64 tensors) by (receiver, sender) into a CSR,
-    and compact it when ``compact`` says so."""
-    order = torch.argsort(receivers * n_pad + senders, stable=True)
+def _build_csr(senders, receivers, vals, n_rows: int, n_send: int,
+               compact, compact_kw) -> CSR:
+    """Sort 0-based COO (int64 tensors) by (receiver, sender) into a CSR of
+    ``n_rows`` receivers over ``n_send`` senders (a tile of a sharded graph
+    has ``n_rows != n_send``), and compact it when ``compact`` says so."""
+    order = torch.argsort(receivers * n_send + senders, stable=True)
     col = senders[order].to(torch.int32)
     row = receivers[order].to(torch.int32)
     val = vals[order]
     del order
-    counts = torch.bincount(receivers, minlength=n_pad)
-    rowptr = torch.zeros(n_pad + 1, dtype=torch.int32,
+    counts = torch.bincount(receivers, minlength=n_rows)
+    rowptr = torch.zeros(n_rows + 1, dtype=torch.int32,
                          device=senders.device)
     rowptr[1:] = torch.cumsum(counts, 0)
-    csr = CSR(rowptr, col, row, val, n_pad)
+    csr = CSR(rowptr, col, row, val, n_send)
     if compact == "auto":
-        compact = compact_auto(n_pad, col.device)
+        compact = compact_auto(n_send, col.device)
     if compact and csr.nnz:
-        col_ext, src_of_pos = divert_stragglers(col, row, n_pad,
+        col_ext, src_of_pos = divert_stragglers(col, row, n_send,
                                                 **(compact_kw or {}))
         if src_of_pos.numel():
             csr.col_ext = col_ext
@@ -219,10 +220,10 @@ class Graph:
         self._csr = {}
         if build_out_edges:
             self._csr["dst"] = _build_csr(src0, dst0, vals, self.n_pad,
-                                          compact, compact_kw)
+                                          self.n_pad, compact, compact_kw)
         if build_in_edges:
             self._csr["src"] = _build_csr(dst0, src0, vals, self.n_pad,
-                                          compact, compact_kw)
+                                          self.n_pad, compact, compact_kw)
 
         self._sender = {}   # sender-major indexes built on first use
         self.valid_vertex = torch.arange(self.n_pad, device=dev) < n
@@ -272,7 +273,8 @@ class Graph:
         if receiver not in self._sender:
             c = self.csr(receiver)
             self._sender[receiver] = _build_csr(
-                c.row.long(), c.col.long(), c.val, self.n_pad, False, None)
+                c.row.long(), c.col.long(), c.val, self.n_pad, self.n_pad,
+                False, None)
         return self._sender[receiver]
 
     def _all_csrs(self):
@@ -377,6 +379,12 @@ class Graph:
         return {k: v[self.perm].cpu().numpy() for k, v in self.vp.items()}
 
     # ------------------------------------------------------------- active
+
+    def active_numpy(self) -> np.ndarray:
+        """The frontier as a host bool[n] in ORIGINAL order."""
+        a = self.active.cpu().numpy()
+        return a[self.perm.cpu().numpy()] if self.perm is not None \
+            else a[: self.n]
 
     def set_all_active(self) -> None:
         self.active = self.valid_vertex.clone()

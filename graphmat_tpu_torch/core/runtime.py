@@ -79,15 +79,19 @@ def _normalize_semiring(sem: Optional[Semiring]) -> Optional[Semiring]:
 
 
 def engine_for(program, graph, **kw):
-    """The engine for ``graph``.  Only the one-device :class:`Graph` is
-    ported; a sharded graph waits for ROADMAP Queue 1 item 4, the
-    distributed engine."""
-    if not isinstance(graph, Graph):
-        raise NotImplementedError(
-            f"graphmat_tpu_torch has no engine for {type(graph).__name__}: "
-            "only the one-device Graph is ported (the distributed engine "
-            "is ROADMAP Queue 1 item 4)")
-    return Engine(program, graph, **kw)
+    """The engine for ``graph``: an :class:`Engine` for a one-device
+    :class:`Graph`, a
+    :class:`~graphmat_tpu_torch.parallel.dist_runtime.DistEngine` for a
+    2D-sharded :class:`~graphmat_tpu_torch.parallel.dist_graph.DistGraph`
+    (JAX ``core/runtime.py:98-106``), so every app runner takes either."""
+    if isinstance(graph, Graph):
+        return Engine(program, graph, **kw)
+    from ..parallel.dist_graph import DistGraph
+    from ..parallel.dist_runtime import DistEngine
+    if isinstance(graph, DistGraph):
+        return DistEngine(program, graph, **kw)
+    raise TypeError(f"no engine for {type(graph).__name__}: pass a Graph "
+                    "or a DistGraph")
 
 
 def _direction_receivers(order: Direction):
@@ -120,14 +124,17 @@ def _combine_tree(monoid, a, b):
     return tree_map(lambda m, x, y: m.combine(x, y), monoid, a, b)
 
 
-class Engine:
-    """Executor for one (program, graph) pair.  Reuse it across runs."""
+class Routing:
+    """A program's route and every direction of one tile through it: the
+    part of a step that the one-device :class:`Engine` and the 2D-sharded
+    :class:`~graphmat_tpu_torch.parallel.dist_runtime.DistEngine` share.
+    The Engine runs it on its one CSR per direction; the DistEngine on
+    each tile's, between its collectives.  ``csr_of(recv, sender_major)``
+    gives a tile's receiver CSR, or its sender-major index for the push."""
 
-    def __init__(self, program: GraphProgram, graph: Graph,
-                 ctx: Optional[IterationContext] = None):
+    def __init__(self, program: GraphProgram):
         self.program = program
-        self.graph = graph
-        self.ctx = ctx if ctx is not None else IterationContext()
+        self._dense = program.activity == Activity.ALL_VERTICES
         # a concat ⊕ runs the segment path (JAX runtime.py:158-161)
         self._vecmsg = bool(getattr(program, "vector_message", False))
         # a scalar kernel cannot read the receiver's property: a program
@@ -143,128 +150,138 @@ class Engine:
         self._vec: Optional[VecSemiring] = (
             None if self._vecmsg else program.vec_semiring())
         self._receivers = _direction_receivers(program.order)
-        for recv in self._receivers:
-            graph.csr(recv)   # raises if the direction was not built
-        # a concat row's width per receiver direction (JAX :237-243)
-        self._msg_width = ({recv: program.max_message_width
-                            or max_degree(graph, recv)
-                            for recv in self._receivers}
-                           if self._vecmsg else {})
-        # the kernel selector, read when the Engine is built, as in JAX
+        # the kernel selector, read when the engine is built, as in JAX
         self._push = legacy_kernel_env()
-        self.final_state = None
+        # K1 and the push count a sparse sum's messages: got is a count > 0
+        self._want_got = (self._semiring is not None and not self._dense
+                          and self._semiring.reduce_kind == "sum")
 
-    def _kernel_directions(self, msg, sent, recv_final):
-        """All directions through a scalar SpMV kernel, K1 or (under
-        ``GRAPHMAT_KERNEL=v2``) the push kernel: (reduced, got).
-        ``recv_final`` (uint8 per receiver, or None) is given for K1's
-        sparse sweeps only."""
+    def _send(self, state, vp, active, valid):
+        """A segment's messages and ``sent = active & valid [&
+        send_mask]``."""
+        msg, send_mask = self.program.send_message(state, vp)
+        sent = active & valid
+        if send_mask is not None:
+            sent = sent & send_mask
+        return msg, sent
+
+    def _receiver_final(self, state, vp, it, valid):
+        """K1's receiver-finality mask (uint8) for a sparse sweep, or
+        None."""
+        if self._push or self._dense:
+            return None
+        rf = self.program.receiver_final(state, vp, it)
+        # pad vertices can never change: count them final
+        return None if rf is None else (rf | ~valid).to(torch.uint8)
+
+    def _scalar_operand(self, msg, sent):
+        """The scalar kernel's x: the encoded message, the identity where
+        nothing was sent."""
+        sem = self._semiring
+        return sem.encode(msg).to(torch.float32).masked_fill(
+            ~sent, IDENTITY[sem.reduce_kind])
+
+    def _kernel_tile(self, csr_of, x, sent_u8, recv_final):
+        """Every direction of one tile through a scalar SpMV kernel, K1 or
+        (under ``GRAPHMAT_KERNEL=v2``) the push kernel: (reduced, count),
+        the count of messages a receiver got only for a sparse sum (else
+        None).  ``recv_final`` (uint8 per receiver, or None) is given for
+        K1's sparse sweeps only."""
         sem = self._semiring
         kind = sem.reduce_kind
-        ident = IDENTITY[kind]
-        x = sem.encode(msg).to(torch.float32).masked_fill(~sent, ident)
-        dense = self.program.activity == Activity.ALL_VERTICES
-        sent_u8 = None if dense else sent.to(torch.uint8)
-        want_got = kind == "sum" and not dense
         read_val = sem.uses_edge_value and sem.process_op != "x"
-        y = got = None
+        y = cnt = None
         for recv in self._receivers:
-            csr = self.graph.csr(recv)
+            csr = csr_of(recv, self._push)
+            val = csr.val_f32 if read_val else None
             if self._push:
-                pcsr = self.graph.sender_csr(recv)
-                out = spmv_push(pcsr, x, kind, sem.process_op,
-                                val=pcsr.val_f32 if read_val else None,
-                                sent=sent_u8, want_got=want_got,
+                out = spmv_push(csr, x, kind, sem.process_op, val=val,
+                                sent=sent_u8, want_got=self._want_got,
                                 bits=sem.bits)
             else:
-                out = spmv(csr, x, kind, sem.process_op,
-                           val=csr.val_f32 if read_val else None,
-                           sent=sent_u8, want_got=want_got,
-                           recv_final=recv_final,
-                           bits=sem.bits)
-            if want_got:
-                y_dir, cnt = out
-                g_dir = cnt > 0
-            else:
-                y_dir = out
-                g_dir = (csr.got_static if kind == "sum"
-                         else y_dir != ident)
+                out = spmv(csr, x, kind, sem.process_op, val=val,
+                           sent=sent_u8, want_got=self._want_got,
+                           recv_final=recv_final, bits=sem.bits)
+            y_dir, c_dir = out if self._want_got else (out, None)
             if y is None:
-                y, got = y_dir, g_dir
+                y, cnt = y_dir, c_dir
             else:
                 y = (y + y_dir if kind == "sum" else
                      torch.minimum(y, y_dir) if kind == "min"
                      else torch.maximum(y, y_dir))
-                got = got | g_dir
-        return sem.decode(y), got
+                cnt = cnt + c_dir if self._want_got else None
+        return y, cnt
 
-    def _vec_directions(self, state, msg, sent, vp):
-        """All directions through the K-wide kernel: (reduced, got).  An
-        ALL_VERTICES program runs dense K3 on zeroed rows of the senders
-        that did not send, with got from the graph's structure; an
-        ACTIVE_ONLY one runs the sparse mode, which skips those senders'
-        edges and counts the others: got is a count > 0."""
+    def _structural_got(self, csr_of):
+        """got of a dense sum, from the structure: some direction holds an
+        edge into the receiver."""
+        got = None
+        for recv in self._receivers:
+            g_dir = csr_of(recv, False).got_static
+            got = g_dir if got is None else got | g_dir
+        return got
+
+    def _vec_operands(self, state, msg, sent, vp):
+        """The K-wide kernel's operands of one segment: x (the senders
+        that did not send zeroed on a dense sweep), the encoded vertex
+        property where the ⊗ reads it, and the program's extra row."""
         sem = self._vec
-        dense = self.program.activity == Activity.ALL_VERTICES
         # the kernel takes the encoded width, as JAX's engine does
         # (runtime.py:529), even where it differs from sem.k
         x = sem.encode(state, msg).to(torch.float32)
-        if dense:
+        if self._dense:
             x = x.masked_fill(~sent[:, None], 0.0)
-        x = x.contiguous()
-        sent_u8 = None if dense else sent.to(torch.uint8)
         vp_enc = (sem.encode_vp(state, vp).to(torch.float32).contiguous()
                   if sem.needs_vp else None)
         extra = (sem.extra_fn(state).to(torch.float32).reshape(-1)
                  .contiguous() if sem.extra_fn is not None else None)
-        y = got = None
+        return x.contiguous(), vp_enc, extra
+
+    def _vec_tile(self, csr_of, x, sent_u8, vp_enc, extra):
+        """Every direction of one tile through the K-wide kernel: dense K3
+        for an ALL_VERTICES program, its sparse mode for an ACTIVE_ONLY
+        one, which skips the edges of senders that did not send and counts
+        the others: (summed rows, count or None)."""
+        sem = self._vec
+        y = cnt = None
         for recv in self._receivers:
-            csr = self.graph.csr(recv)
-            if dense:
+            csr = csr_of(recv, False)
+            if self._dense:
                 y_dir = spmv_vec(csr, x, sem.process_op, vp=vp_enc,
                                  extra=extra, params=sem.params)
-                g_dir = csr.got_static
+                c_dir = None
             else:
-                y_dir, cnt = spmv_vec_sparse(csr, x, sem.process_op,
-                                             sent_u8, vp=vp_enc, extra=extra,
-                                             params=sem.params)
-                g_dir = cnt > 0
-            if y is None:
-                y, got = y_dir, g_dir
-            else:
-                y = y + y_dir
-                got = got | g_dir
-        return sem.decode(y), got
+                y_dir, c_dir = spmv_vec_sparse(csr, x, sem.process_op,
+                                               sent_u8, vp=vp_enc,
+                                               extra=extra, params=sem.params)
+            y = y_dir if y is None else y + y_dir
+            cnt = c_dir if cnt is None else cnt + c_dir
+        return y, cnt
 
-    @property
-    def vector_reduced_width(self) -> int:
-        """The static width D of the ``reduced`` rows a vector-message
-        program's ``apply`` receives (directions concat along axis 1)."""
-        return sum(self._msg_width.values())
-
-    def _segment_directions(self, state, msg, sent, vp):
-        """All directions through the plain segment reduce, or the concat
-        reduce for a vector-message program."""
+    def _segment_tile(self, csr_of, state, msg, sent, vp, n_rows,
+                      msg_width):
+        """Every direction of one tile through the plain segment reduce, or
+        the concat reduce of a vector-message program (``msg_width`` per
+        direction): (reduced, got).  ``vp`` is the receivers' property, or
+        None where the program's ⊗ does not read it."""
         prog = self.program
-        n_pad = self.graph.n_pad
         reduced = got = None
         for recv in self._receivers:
-            csr = self.graph.csr(recv)
+            csr = csr_of(recv, False)
             col = csr.col.long()
             row = csr.row.long()
             x_e = tree_map(lambda a: a[col], msg)
             e_ok = sent[col]
-            vp_r = (tree_map(lambda a: a[row], vp)
-                    if prog.process_requires_vertexprop else None)
+            vp_r = tree_map(lambda a: a[row], vp) if vp is not None else None
             u_e = prog.process_message(state, x_e, csr.val, vp_r)
             if self._vecmsg:
-                partial = segment_concat_tree(u_e, e_ok, row, n_pad,
-                                              self._msg_width[recv],
+                partial = segment_concat_tree(u_e, e_ok, row, n_rows,
+                                              msg_width[recv],
                                               prog.vector_pad)
             else:
                 u_e = masked_fill_identity(prog.reduce, u_e, e_ok)
-                partial = segment_reduce_tree(prog.reduce, u_e, row, n_pad)
-            g = segment_any(e_ok, row, n_pad)
+                partial = segment_reduce_tree(prog.reduce, u_e, row, n_rows)
+            g = segment_any(e_ok, row, n_rows)
             if reduced is None:
                 reduced, got = partial, g
             elif self._vecmsg:   # concat across directions (ALL_EDGES)
@@ -276,33 +293,71 @@ class Engine:
                 got = got | g
         return reduced, got
 
+    def _apply(self, state, reduced, vp, got, valid):
+        """Apply where a message arrived: (vp, changed, next active) of
+        one segment."""
+        prog = self.program
+        upd = got & valid
+        vp_new = _where_tree(upd, prog.apply(state, reduced, vp), vp)
+        ch = prog.changed(vp, vp_new) & upd
+        return vp_new, ch, valid if self._dense else ch
+
+
+class Engine(Routing):
+    """Executor for one (program, graph) pair.  Reuse it across runs."""
+
+    def __init__(self, program: GraphProgram, graph: Graph,
+                 ctx: Optional[IterationContext] = None):
+        super().__init__(program)
+        self.graph = graph
+        self.ctx = ctx if ctx is not None else IterationContext()
+        for recv in self._receivers:
+            graph.csr(recv)   # raises if the direction was not built
+        # a concat row's width per receiver direction (JAX :237-243)
+        self._msg_width = ({recv: program.max_message_width
+                            or max_degree(graph, recv)
+                            for recv in self._receivers}
+                           if self._vecmsg else {})
+        self.final_state = None
+
+    @property
+    def vector_reduced_width(self) -> int:
+        """The static width D of the ``reduced`` rows a vector-message
+        program's ``apply`` receives (directions concat along axis 1)."""
+        return sum(self._msg_width.values())
+
+    def _csr(self, recv, sender_major=False):
+        g = self.graph
+        return g.sender_csr(recv) if sender_major else g.csr(recv)
+
     def _step(self, it: int, state, vp, active):
         """One iteration; returns (state, vp, active, any_changed) with
         ``any_changed`` a bool tensor left on the device."""
         prog = self.program
         valid = self.graph.valid_vertex
-        msg, send_mask = prog.send_message(state, vp)
-        sent = active & valid
-        if send_mask is not None:
-            sent = sent & send_mask
+        msg, sent = self._send(state, vp, active, valid)
+        sent_u8 = None if self._dense else sent.to(torch.uint8)
         if self._vec is not None:
-            reduced, got = self._vec_directions(state, msg, sent, vp)
+            x, vp_enc, extra = self._vec_operands(state, msg, sent, vp)
+            y, cnt = self._vec_tile(self._csr, x, sent_u8, vp_enc, extra)
+            reduced = self._vec.decode(y)
+            got = self._structural_got(self._csr) if cnt is None else cnt > 0
         elif self._semiring is not None:
-            recv_final = None
-            if not self._push and prog.activity == Activity.ACTIVE_ONLY:
-                rf = prog.receiver_final(state, vp, it)
-                if rf is not None:
-                    # pad vertices can never change: count them final
-                    recv_final = (rf | ~valid).to(torch.uint8)
-            reduced, got = self._kernel_directions(msg, sent, recv_final)
+            kind = self._semiring.reduce_kind
+            y, cnt = self._kernel_tile(
+                self._csr, self._scalar_operand(msg, sent), sent_u8,
+                self._receiver_final(state, vp, it, valid))
+            reduced = self._semiring.decode(y)
+            got = (cnt > 0 if self._want_got else
+                   self._structural_got(self._csr) if kind == "sum"
+                   else y != IDENTITY[kind])
         else:
-            reduced, got = self._segment_directions(state, msg, sent, vp)
-        upd = got & valid
-        vp_new = _where_tree(upd, prog.apply(state, reduced, vp), vp)
-        ch = prog.changed(vp, vp_new) & upd
+            reduced, got = self._segment_tile(
+                self._csr, state, msg, sent,
+                vp if prog.process_requires_vertexprop else None,
+                self.graph.n_pad, self._msg_width)
+        vp_new, ch, active_new = self._apply(state, reduced, vp, got, valid)
         state = prog.do_every_iteration(state, vp_new, it, self.ctx)
-        active_new = (valid if prog.activity == Activity.ALL_VERTICES
-                      else ch)
         return state, vp_new, active_new, ch.any()
 
     def run(self, iterations: int = UNTIL_CONVERGENCE,

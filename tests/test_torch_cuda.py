@@ -854,3 +854,60 @@ def test_get_neighbors_on_cuda_matches_cpu(cuda, permute):
     want = run_get_neighbors(gt.Graph(e, permute=permute, device="cpu"))
     got = run_get_neighbors(gt.Graph(e, permute=permute, device=cuda))
     np.testing.assert_array_equal(got, want)
+
+
+# ------------------------------------------------ the sharded engine's tiles
+
+@pytest.mark.parametrize("shape", [(2, 2), (2, 4)])
+@pytest.mark.parametrize("route", ["v2u", "v2"])
+def test_dist_engine_on_cuda_tiles_matches_cpu_tiles(cuda, route, shape,
+                                                     monkeypatch):
+    """A LocalMesh of card tiles against the same mesh of CPU tiles:
+    BFS exactly, 20 PageRank steps within 1e-5 of max(1, |pr|) (the
+    kernels sum in another order, the push by atomics), the kernels
+    launched on the tiles."""
+    from graphmat_tpu_torch.apps import bfs as tbfs
+    from graphmat_tpu_torch.parallel.dist_graph import DistGraph
+    from graphmat_tpu_torch.parallel.mesh import LocalMesh
+    monkeypatch.setenv("GRAPHMAT_KERNEL", route)
+    e = rmat_edgelist(12, 16, seed=3, device="cpu")
+    nt = shape[0] * shape[1]
+    out = {}
+    counts = spmv2.LAUNCHES if route == "v2" else spmv2u.LAUNCHES
+    for dev in ("cpu", cuda):
+        before = sum(counts.values())
+        g = DistGraph(e, LocalMesh([dev] * nt, shape), seg_align=8)
+        pr, it = tpr.run_pagerank(g, iterations=20)
+        depth, parent, _ = tbfs.run_bfs(g, 1)
+        torch.cuda.synchronize()
+        launched = sum(counts.values()) - before
+        assert (launched > 0) == (dev != "cpu")
+        out[str(dev)] = (pr, it, depth, parent)
+    (pr_c, it_c, d_c, p_c), (pr_g, it_g, d_g, p_g) = out.values()
+    assert it_g == it_c
+    np.testing.assert_array_equal(d_g, d_c)
+    np.testing.assert_array_equal(p_g, p_c)
+    np.testing.assert_allclose(pr_g, pr_c, rtol=1e-5, atol=1e-5)
+
+
+def test_dist_compacted_cuda_tiles_equal_uncompacted(cuda):
+    """K2 on compacted card tiles: PageRank and BFS bitwise the
+    uncompacted tiles', one K2 launch for each K1 call."""
+    from graphmat_tpu_torch.apps import bfs as tbfs
+    from graphmat_tpu_torch.parallel.dist_graph import DistGraph
+    from graphmat_tpu_torch.parallel.mesh import LocalMesh
+    e = rmat_edgelist(12, 16, seed=5, device=cuda)
+    mesh = LocalMesh([cuda] * 4, (2, 2))
+    on = DistGraph(e, mesh, compact=True,
+                   compact_kw=dict(hub=0, divert_min=1 << 30, w_div=1))
+    off = DistGraph(e, mesh, compact=False)
+    k1, k2 = sum(spmv2u.LAUNCHES.values()), compact.LAUNCHES["aux_gather"]
+    pr_on, it_on = tpr.run_pagerank(on)
+    torch.cuda.synchronize()
+    k1_on = sum(spmv2u.LAUNCHES.values()) - k1
+    assert compact.LAUNCHES["aux_gather"] - k2 == k1_on > 0
+    pr_off, it_off = tpr.run_pagerank(off)
+    assert it_on == it_off
+    np.testing.assert_array_equal(pr_on, pr_off)
+    for a, b in zip(tbfs.run_bfs(on, 1), tbfs.run_bfs(off, 1)):
+        np.testing.assert_array_equal(a, b)

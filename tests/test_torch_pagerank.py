@@ -180,7 +180,9 @@ def test_vertex_api_matches_jax():
 
 
 def test_engine_for_rejects_other_graphs():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    # a Graph gets an Engine and a DistGraph a DistEngine
+    # (tests/test_torch_dist.py); anything else raises
+    with pytest.raises(TypeError, match="a Graph or a DistGraph"):
         gt.engine_for(tpr.PageRankProgram(), object())
 
 
@@ -196,5 +198,10 @@ def test_cli_platform_and_mesh(monkeypatch):
         _cli.device_from_env()
     monkeypatch.setenv("GRAPHMAT_PLATFORM", "cpu")
     monkeypatch.setenv("GRAPHMAT_MESH", "2x4")
-    with pytest.raises(NotImplementedError, match="GRAPHMAT_MESH"):
+    from graphmat_tpu_torch.parallel.dist_graph import DistGraph
+    g = _cli.build_graph(gt.load_edgelist(TEST_MTX))
+    assert isinstance(g, DistGraph) and g.mesh.shape == (2, 4)
+    assert all(d.type == "cpu" for d in g.devices)
+    monkeypatch.setenv("GRAPHMAT_MESH", "2by4")
+    with pytest.raises(ValueError, match="GRAPHMAT_MESH"):
         _cli.build_graph(gt.load_edgelist(TEST_MTX))
