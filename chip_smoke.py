@@ -13,11 +13,12 @@ delta-stepping) on both kernel routes: K1 with its receiver-finality skip
 (``GRAPHMAT_KERNEL=v2u``) and the push kernel for K6/K7
 (``GRAPHMAT_KERNEL=v2``), then ACTIVE_ONLY K-wide programs on K3's sparse
 mode (K4, with K5's got count fused in), then TriangleCounting (its two
-hot loops, T1 and T2) and GetNeighbors.  Phases, in order; any failure
-raises and the script exits non-zero:
+hot loops, T1 and T2) and GetNeighbors, the 2D-sharded engine, the push's
+sums in K1's fixed order and the converter.  Phases, in order; any
+failure raises and the script exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit) and the software;
-2. the kernel build, timed;
+2. the kernel build and the host library's (``g++``), timed;
 3. each kernel against its plain PyTorch version on a seeded RMAT graph
    of about 1M edges: K1 (the SpMV) for sum, min and max, for each ⊗,
    dense, sparse and sparse with the got count; K2 (the compaction
@@ -65,10 +66,11 @@ raises and the script exits non-zero:
     shape (the gather's floor), ``lda`` on the term rows against the doc
     rows;
 12. K1's recv_final skip (0, 50 and 100% of rows final, sparse min and
-    sum with got) and packed-key ⊗, and the push kernel (sum with got,
-    min, max, every ⊗; dense and frontiers of 0.01%, 1% and 50% of
-    senders), against their plain versions on phase 3's graph; K1 against
-    the push, bitwise; then, on a hub graph (RMAT-16 plus a sender and a
+    sum with got) and packed-key ⊗, and the push (sum with got: the mark
+    pass and K1; min, max, every ⊗; dense and frontiers of 0.01%, 1% and
+    50% of senders), against their plain versions on phase 3's graph
+    (edge values drawn on the graph: a push sum reads the receiver CSR's
+    copy of them); K1 against the push, bitwise; then, on a hub graph (RMAT-16 plus a sender and a
     receiver of 2^20 edges, rows at each lane group's length limit and
     one past it, C and C + 1 edges, and empty rows), both kernels in
     every reduce x ⊗ x mode against their plain versions, K1's dense sum
@@ -85,11 +87,12 @@ raises and the script exits non-zero:
 15. timings from CUDA events: BFS per source on each route (ms, GTEPS
     over the input edges within the reached component), one dense and one
     sparse BFS level on K1 beside the push, the SSSP dense sweep of
-    bench.py:318-334 (GTEPS), the push kernel alone beside its plain
-    version and cuSPARSE, where the hubs sit and what they cost each
-    kernel (K1 without the first 32 or 1024 rows, the push without the
-    first 32 senders and without its atomics, beside cuSPARSE), peak
-    device memory;
+    bench.py:318-334 (GTEPS), the push kernel's own dense max alone
+    beside its plain version (a push sum is K1's sweep: phase 21), its
+    sparse min at 1% of senders beside K1's, where the hubs sit and what
+    they cost each kernel (K1 without the first 32 or 1024 rows, the push
+    without the first 32 senders and without its atomics, beside
+    cuSPARSE), peak device memory;
 16. K3's sparse mode against its plain version on phase 7's graphs, every
     op at phase 7's widths with 100%, 10%, 1% and 0.01% of senders sent
     (100% and 10% on the row-length graph; the got count exact, at 100%
@@ -143,8 +146,8 @@ raises and the script exits non-zero:
     tiles, each route against the one-device Engine on the card: K1's
     dense sum and sparse sum with got (PageRank, 1e-5), its sparse min
     with recv_final (BFS from 4 sources, SSSP, CC, DeltaStepping:
-    exact), the push kernel (``GRAPHMAT_KERNEL=v2``: BFS exact,
-    PageRank 1e-3), K3 (SGD at 1M ratings, LDA at 100k entries) and its
+    exact), the push (``GRAPHMAT_KERNEL=v2``: BFS exact, PageRank to
+    convergence in K1's count of steps with K1's vector bit for bit), K3 (SGD at 1M ratings, LDA at 100k entries) and its
     sparse mode (ACTIVE_ONLY SGD from a 10% frontier: the got counts and
     the frontier exact), the segment route (CC under P4's rule) and the
     concat route (GetNeighbors), K2 (compacted tiles bitwise the
@@ -158,6 +161,27 @@ raises and the script exits non-zero:
     interleaved rounds), the collectives' share of device time
     (torch.profiler ranges around the mesh's collectives), peak device
     memory.
+21. the push's sums in a fixed order (ROADMAP P6) and the converter:
+    (a) on phase 5's RMAT-22 edge list, the push's dense sum and its
+    sparse sums with and without the got count at 0.01%, 1% and 10% of
+    senders: the same bits over 10 launches, K1's bits on the same CSR
+    and sent mask, within SUM_RTOL of a float64 ``index_add_``; each
+    timed beside K1 alone, the mark pass alone (its bytes against its
+    plain version's, max |err| recorded), the plain version and cuSPARSE
+    (dense); PageRank on the push route to convergence at
+    RMAT-16 and RMAT-22, on one device (K1's steps and vector bit for
+    bit) and on a 2x4 LocalMesh (K1's steps and vector on the same
+    tiles, within DIST_PR_RTOL of one device); IncPR on the push (K1's
+    vector bit for bit, within INCPR_RTOL of the float64 fixed point);
+    ``scripts/torch_push_convergence.py --check``; (b) RMAT-20 x 16,
+    seed 1, written as a binary mtx and converted with ``python -m
+    graphmat_tpu_torch.io.converter --bidirectional --randomizeID`` (a
+    subprocess, timed); the C id mapping against the numpy one at
+    m = 2^16 and the converter's m; ``read_mtx`` onto the card, its
+    edges those of the same transform chain in memory; PageRank on the
+    converted graph through K1 and the push against PageRank on the
+    unconverted bidirectional graph mapped through the permutation
+    (1e-5, steps within CONVERT_STEPS, ROADMAP H1's one).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Phase numbers given as arguments run
@@ -1433,11 +1457,9 @@ SSSP_ITERS = 200    # bench.py:54, dense relaxation sweeps per timed run
 # of max(1, |pr|): float32 delta-PageRank (deltas under 1e-8 are never
 # propagated) against the float64 fixed point.  K1 sums a row in a fixed
 # order, 32 lanes then a shuffle tree: 9.8e-7 measured at RMAT-22.  The
-# push kernel sums by atomics, one float32 accumulator per receiver in
-# arbitrary order, whose error grows with the in-degree (hub rows of
-# RMAT-22 hold ~10^5 terms): 6.0e-5 to 7.4e-5 measured (NVIDIA H100 80GB
-# HBM3, 700 W; PERF.md section 6)
-INCPR_RTOL = {"v2u": 1e-5, "v2": 1e-3}
+# push's sums are K1's over the receiver CSR (ROADMAP P6), so it is held
+# to the same bound
+INCPR_RTOL = {"v2u": 1e-5, "v2": 1e-5}
 N_SOURCES = 8
 
 
@@ -1485,21 +1507,23 @@ def phase_new_kernels(device, scale=16, edge_factor=16, seed=7):
     """Phase 12: K1's recv_final and packed-key cases and the push kernel
     (K6/K7) against their plain versions."""
     import torch
-    from graphmat_tpu_torch import Graph
+    from graphmat_tpu_torch import EdgeList, Graph
     from graphmat_tpu_torch.ops.spmv2 import spmv_push, spmv_push_reference
     from graphmat_tpu_torch.ops.spmv2u import (PROCESS_OPS, spmv,
                                                spmv_reference)
     from graphmat_tpu_torch.utils.generators import rmat_edgelist
     e = rmat_edgelist(scale, edge_factor, seed=seed, device=device)
-    g = Graph(e, device=device, compact=False)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    # normal edge values on the graph: a push sum reads the receiver
+    # CSR's copy of the sender index's values
+    g = Graph(EdgeList(e.m, e.n, e.src, e.dst, torch.randn(
+        e.nnz, generator=gen, device=device)), device=device, compact=False)
     rc, sc = g.csr("dst"), g.sender_csr("dst")   # receiver-, sender-major
     n = g.n_pad
     bits = max(int(np.ceil(np.log2(n))), 1)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
     x = torch.randn(n, generator=gen, device=device)
-    val_r = torch.randn(rc.nnz, generator=gen, device=device)
-    val_s = torch.randn(sc.nnz, generator=gen, device=device)
+    val_r, val_s = rc.val_f32, sc.val_f32
     w_r = torch.randint(1, 8, (rc.nnz,), generator=gen,
                         device=device).float()
     w_s = torch.randint(1, 8, (sc.nnz,), generator=gen,
@@ -1576,20 +1600,32 @@ def phase_new_kernels(device, scale=16, edge_factor=16, seed=7):
                 bound = sum_bound(sc.col.long(), sc.row.long(),
                                   PROCESS_OPS[op](xx[sc.row.long()], vv,
                                                   bits), n, sent)
-            push_err = max(push_err, compare_out(what, out, ref, kind,
-                                                 bound))
+            # a push sum is K1's sweep: its error is K1's
+            e_case = compare_out(what, out, ref, kind, bound)
+            if kind == "sum":
+                k1_err = max(k1_err, e_case)
+            else:
+                push_err = max(push_err, e_case)
             push_cases += 1
-    # the two kernels compute one function: K1 equals the push, bitwise
-    for kind in ("min", "max"):
+    # the two routes compute one function: K1 equals the push, bitwise,
+    # the sums (and counts) too: the push sums by K1
+    for kind in ("sum", "min", "max"):
         for sent in (None, sent30):
-            a = spmv(rc, x, kind, "x", sent=sent)
-            b = spmv_push(sc, x, kind, "x", sent=sent)
+            got = kind == "sum" and sent is not None
+            a = spmv(rc, x, kind, "x_mul_val", val=val_r, sent=sent,
+                     want_got=got)
+            b = spmv_push(sc, x, kind, "x_mul_val", val=val_s, sent=sent,
+                          want_got=got)
             sync(device)
-            compare_out(f"K1 against the push, {kind}", a, b, kind)
+            for u, w in zip(a if got else (a,), b if got else (b,)):
+                if not torch.equal(u.view(torch.int32), w.view(torch.int32)):
+                    raise AssertionError(f"K1 against the push, {kind}: "
+                                         "not bitwise equal")
     log(f"phase 12: RMAT-{scale} x{edge_factor}: n={g.n} nnz={rc.nnz}; K1 "
         f"agrees in {k1_cases} recv_final/packed-key cases (max |err| "
         f"{k1_err:.3e}); the push kernel agrees in {push_cases} cases "
-        f"(max |err| {push_err:.3e}); min/max and counts bitwise")
+        f"(max |err| {push_err:.3e}); min/max and counts bitwise; the push "
+        f"equals K1 bitwise, sums included")
     return k1_err, push_err
 
 
@@ -1633,17 +1669,23 @@ def phase_hub_kernels(device, scale=16, seed=7):
     dense sum bitwise the same over two launches; K1 and the push equal in
     min and max at BFS level 1 from the hub sender."""
     import torch
-    from graphmat_tpu_torch import Graph
+    from graphmat_tpu_torch import EdgeList, Graph
     from graphmat_tpu_torch.ops.spmv2 import spmv_push, spmv_push_reference
     from graphmat_tpu_torch.ops.spmv2u import (PROCESS_OPS, spmv,
                                                spmv_reference)
     e, hub_s, hub_r = hub_edgelist(device, scale, seed=seed)
-    g = Graph(e, device=device, compact=False)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    # a push sum reads the graph's own values: normal ones, and integer
+    # weights 1..7 on a second copy for the packed keys
+    g, gk = (Graph(EdgeList(e.m, e.n, e.src, e.dst, v), device=device,
+                   compact=False) for v in (
+        torch.randn(e.nnz, generator=gen, device=device),
+        torch.randint(1, 8, (e.nnz,), generator=gen,
+                      device=device).float()))
     rc, sc = g.csr("dst"), g.sender_csr("dst")
     n = g.n_pad
     bits = max(int(np.ceil(np.log2(n))), 1)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
 
     def rand(size):
         return torch.rand(size, generator=gen, device=device)
@@ -1701,10 +1743,15 @@ def phase_hub_kernels(device, scale=16, seed=7):
                         what, out, ref, kind, bound))
                     cases["k1"] += 1
                 xx, vv = operand(kind, op, "send")
+                s_csr = sc
+                if kind == "sum":   # the push sums the graph's own values
+                    s_csr = (gk if op == "key_add_val" else g).sender_csr(
+                        "dst")
+                    vv = s_csr.val_f32
                 kw = dict(val=vv, sent=sent, want_got=got, bits=bits)
-                out = spmv_push(sc, xx, kind, op, **kw)
+                out = spmv_push(s_csr, xx, kind, op, **kw)
                 sync(device)
-                ref = spmv_push_reference(sc, xx, kind, op, **kw)
+                ref = spmv_push_reference(s_csr, xx, kind, op, **kw)
                 what = f"hub graph push {kind} {op} {fname}"
                 if got:
                     (out, cnt), (ref, cnt_ref) = out, ref
@@ -1712,12 +1759,50 @@ def phase_hub_kernels(device, scale=16, seed=7):
                         raise AssertionError(f"{what}: counts differ")
                 bound = None
                 if kind == "sum":
-                    terms = PROCESS_OPS[op](xx[sc.row.long()], vv, bits)
-                    bound = sum_bound(sc.col.long(), sc.row.long(), terms, n,
-                                      sent)
-                err["push"] = max(err["push"], compare_out(
+                    terms = PROCESS_OPS[op](xx[s_csr.row.long()], vv, bits)
+                    bound = sum_bound(s_csr.col.long(), s_csr.row.long(),
+                                      terms, n, sent)
+                # a push sum is K1's sweep: its error is K1's
+                route = "k1" if kind == "sum" else "push"
+                err[route] = max(err[route], compare_out(
                     what, out, ref, kind, bound))
                 cases["push"] += 1
+    # the integer weights' x_add_val sum, whose hub row holds 2^20 mostly
+    # positive terms: K1 and the push within SUM_RTOL of the float64 sum
+    # of the same float32 terms; the float32 plain version's share of
+    # that bound is logged, not required (on the CPU K1 and the push are
+    # that plain version, and exceed it)
+    on_card = torch.device(device).type == "cuda"
+    rk, sk = gk.csr("dst"), gk.sender_csr("dst")
+    share = {}
+    for fname in ("dense", "1%+hub"):
+        sent = frontiers[fname]
+        got = sent is not None
+        kw = dict(val=rk.val_f32, sent=sent, want_got=got)
+        terms = PROCESS_OPS["x_add_val"](x[rk.col.long()], rk.val_f32)
+        if sent is not None:
+            terms = terms * sent[rk.col.long()].float()
+        row = rk.row.long()
+        exact = torch.zeros(n, dtype=torch.float64, device=device
+                            ).index_add_(0, row, terms.double())
+        bound = torch.zeros_like(exact).index_add_(
+            0, row, terms.double().abs()) * SUM_RTOL
+        for name, out in (
+                ("k1", spmv(rk, x, "sum", "x_add_val", **kw)),
+                ("push", spmv_push(sk, x, "sum", "x_add_val",
+                                   val=sk.val_f32, sent=sent,
+                                   want_got=got)),
+                ("plain", spmv_reference(rk, x, "sum", "x_add_val", **kw))):
+            y = (out[0] if got else out).double()
+            r = float(((y - exact).abs() / bound.clamp(min=1e-30)).max())
+            share[f"{name} {fname}"] = r
+            if on_card and name != "plain" and r > 1.0:
+                raise AssertionError(f"hub graph, integer weights: {name} "
+                                     f"x_add_val sum {fname} off float64 by "
+                                     f"{r} of its bound")
+    log("phase 12: hub graph, integer weights, x_add_val sum against "
+        "float64, the largest |err| as a share of SUM_RTOL * sum|t|: "
+        + json.dumps(share))
     val = vals["recv"][0]
     a = spmv(rc, x, "sum", "x_mul_val", val=val)
     b = spmv(rc, x, "sum", "x_mul_val", val=val)
@@ -1783,18 +1868,33 @@ def read_counts():
 
 
 def launches(counts, kernel):
-    return sum(n for k, n in counts.items() if k.startswith(kernel + "."))
+    """The launches of ``kernel`` (a name, or name.mode) in ``counts``."""
+    return sum(n for k, n in counts.items()
+               if k == kernel or k.startswith(kernel + "."))
 
 
-def check_route(what, counts, route, cuda, need_final=False):
+def push_sum_launches_ok(counts):
+    """Every K1 launch of a run under v2 is a push sum's: a sparse one
+    carries the mark pass's final rows and follows one mark pass each."""
+    c = counts.get
+    return (c("k1.sparse", 0) == c("k1.sparse_got", 0) == 0
+            and c("k1.sparse_final", 0) + c("k1.sparse_got_final", 0)
+            == c("push.mark", 0))
+
+
+def check_route(what, counts, route, cuda, need_final=False, sums=False):
     """The run went through its route's kernel: K1 under v2u (with the
-    recv_final skip where the program gives one), the push under v2."""
+    recv_final skip where the program gives one), the push under v2: its
+    own kernel for min and max, and for a program that sums (``sums``)
+    the mark pass and K1 (a dense sum K1 alone), no K1 launch otherwise."""
     if not cuda:
         return
     k1, push = launches(counts, "k1"), launches(counts, "push")
     fin = sum(n for k, n in counts.items() if k.endswith("_final"))
     ok = (k1 > 0 and push == 0 and (fin > 0 or not need_final)
-          if route == "v2u" else push > 0 and k1 == 0)
+          if route == "v2u" else
+          push_sum_launches_ok(counts) and (k1 + push > 0) and (
+              sums or k1 == 0))
     if not ok:
         raise AssertionError(f"{what} under GRAPHMAT_KERNEL={route}: "
                              f"launches {counts}")
@@ -1846,7 +1946,7 @@ def phase_golden_traversal(cuda=True):
                 != re.findall(pat, golden("toposort_2_10.txt"), re.M)):
             raise AssertionError(f"golden TopoSort ({route}):\n{ours}")
         out[route] = read_counts()
-        check_route("goldens", out[route], route, cuda)
+        check_route("goldens", out[route], route, cuda, sums=True)
     os.environ["GRAPHMAT_KERNEL"] = "v2u"
     log(f"phase 13: golden BFS, SSSP, IncPR (5e-5), DeltaStepping and "
         f"TopoSort match under both routes; launches {out}")
@@ -1954,9 +2054,10 @@ def timed(fn, device):
     return out, time.perf_counter() - t0
 
 
-def run_routes(what, fn, device, need_final=False):
+def run_routes(what, fn, device, need_final=False, sums=False):
     """``fn()`` under GRAPHMAT_KERNEL=v2u and =v2, counts reset before
-    and read after each: {route: (result, seconds, counts)}."""
+    and read after each: {route: (result, seconds, counts)}; ``sums``:
+    the program sums (its push route launches K1 too)."""
     import torch
     cuda = torch.device(device).type == "cuda"
     out = {}
@@ -1965,7 +2066,7 @@ def run_routes(what, fn, device, need_final=False):
         reset_counts()
         res, sec = timed(fn, device)
         out[route] = (res, sec, read_counts())
-        check_route(what, out[route][2], route, cuda, need_final)
+        check_route(what, out[route][2], route, cuda, need_final, sums)
     os.environ["GRAPHMAT_KERNEL"] = "v2u"
     return out
 
@@ -2041,7 +2142,7 @@ def phase_traversal(device, scale=22, small_scale=20, edge_factor=16,
 
     # incremental PageRank against the float64 fixed point
     routes = run_routes("IncPR", lambda: ipr.run_incremental_pagerank(g),
-                        device)
+                        device, sums=True)
     fp, fp_it = pagerank_fixed_point(src0_d, dst0_d, n)
     fp = fp.cpu().numpy()
     incpr_err = {}
@@ -2061,7 +2162,7 @@ def phase_traversal(device, scale=22, small_scale=20, edge_factor=16,
     e_dag = transforms.convert_to_dag(e)
     g_dag = Graph(e_dag, device=device, permute="degree", **gkw)
     routes = run_routes("TopoSort", lambda: ts.run_topological_sort(g_dag),
-                        device, need_final=True)
+                        device, need_final=True, sums=True)
     t0 = time.perf_counter()
     want = kahn_levels(e_dag.src.cpu().numpy().astype(np.int64) - 1,
                        e_dag.dst.cpu().numpy().astype(np.int64) - 1, n)
@@ -2198,9 +2299,10 @@ def hub_diagnosis(g, x, reps=20):
     receiver row and the out-degree of senders 0-31 (one push tile); K1's
     dense sum on rows k and up (``rowptr[k:]`` rebased, ``col`` from its
     first edge: views, no copies) for k in 0, 32, 1024; the push's dense
-    sum with and without senders 0-31, and its walk without atomics;
-    cuSPARSE on the whole CSR; and how many rows and senders fall in each
-    length class of K1's lane groups."""
+    max (its own kernel: a push sum is K1's) with and without senders
+    0-31, and its walk without atomics; cuSPARSE on the whole CSR; and how
+    many rows and senders fall in each length class of K1's lane
+    groups."""
     import torch
     from graphmat_tpu_torch.core.graph import CSR
     from graphmat_tpu_torch.ops.spmv2 import spmv_push
@@ -2229,10 +2331,10 @@ def hub_diagnosis(g, x, reps=20):
         out["k1_dense_sum_ms_from_row"][k] = event_ms(
             lambda: spmv(view, x, "sum", "x"), reps)
     push_tail = tail(sc, 32)
-    out["push_dense_sum_ms"] = event_ms(
-        lambda: spmv_push(sc, x, "sum", "x"), reps)
-    out["push_dense_sum_ms_without_tile0"] = event_ms(
-        lambda: spmv_push(push_tail, x[32:], "sum", "x"), reps)
+    out["push_dense_max_ms"] = event_ms(
+        lambda: spmv_push(sc, x, "max", "x"), reps)
+    out["push_dense_max_ms_without_tile0"] = event_ms(
+        lambda: spmv_push(push_tail, x[32:], "max", "x"), reps)
     # the same walk without atomics: max of -inf reads y at every edge
     # and never finds it can improve it
     no_gain = torch.full_like(x, float("-inf"))
@@ -2329,31 +2431,22 @@ def phase_traversal_timings(card, report, gw, scale=22, edge_factor=16,
         out[f"bfs_profile_{route}"] = profile_run(one_bfs)
     os.environ["GRAPHMAT_KERNEL"] = "v2u"
 
-    # the push kernel alone: dense sum at the slice's shape, its plain
-    # version, cuSPARSE, and its bound (rowptr, col, x, y once)
+    # the push kernel's own dense max at the slice's shape (a push sum is
+    # K1's sweep, timed in phase 21), beside its plain version on the same
+    # inputs, and its bound (rowptr, col, x, y once); hub_diagnosis times
+    # it
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
     x = torch.rand(g.n_pad, generator=gen, device="cuda")
     out["hub_diagnosis"] = hub_diagnosis(g, x)
-    push_dense = lambda: spmv_push(sc, x, "sum", "x")
-    push_ms = event_ms(push_dense, 20)
-    push_plain_ms = event_ms(lambda: spmv_push_reference(sc, x, "sum", "x"),
-                             3, warm=1)
-    # held against the plain sum in float64: the push's atomics and the
-    # plain version's scatter_reduce_ both sum a hub row in an order that
-    # changes from run to run, and two float32 sums of a row of some 4e4
-    # terms can differ by more than SUM_RTOL of its sum (1.06e-5 seen once
-    # on the card); the exact sum leaves only the kernel's own rounding
-    send, recv = sc.row.long(), sc.col.long()
-    ref = torch.zeros(g.n_pad, dtype=torch.float64,
-                      device="cuda").index_add_(0, recv, x[send].double())
-    err = compare_out("push dense sum at the slice's shape",
-                      push_dense().double(), ref, "sum",
-                      sum_bound(recv, send, x[send], g.n_pad).double())
+    err = compare_out("push dense max at the slice's shape",
+                      spmv_push(sc, x, "max", "x"),
+                      spmv_push_reference(sc, x, "max", "x"), "max")
     push_bytes = 4 * (sc.rowptr.numel() + sc.nnz + 2 * g.n_pad)
-    out["push_dense_sum"] = {
-        "ms": push_ms, "plain_ms": push_plain_ms,
-        "cusparse_ms": cusparse_ms(rc.rowptr, rc.col, x),
+    out["push_dense_max"] = {
+        "ms": out["hub_diagnosis"]["push_dense_max_ms"],
+        "plain_ms": event_ms(lambda: spmv_push_reference(
+            sc, x, "max", "x"), 3, warm=1),
         "bound_ms": hbm_ms(push_bytes), "bytes": push_bytes,
         "max_abs_err": err}
     sent = (torch.rand(g.n_pad, generator=gen, device="cuda") < 0.01).to(
@@ -3312,8 +3405,11 @@ def phase_dist_routes(device, scale=16, edge_factor=16, seed=7,
             f"{tag} DeltaStepping", lambda: ds.run_delta_stepping_dist(
                 ew, DELTA, sources[0], mesh), "k1.sparse_final")[0],
             ref["ds"])
-        # the push kernel (GRAPHMAT_KERNEL=v2), on each tile's sender-major
-        # index
+        # the push (GRAPHMAT_KERNEL=v2), on each tile's sender-major
+        # index: BFS on its own kernel; PageRank's sums on K1 over the
+        # tile's receiver CSR (the dense sum K1's alone, the degree pass's
+        # sparse sum after the mark pass), so run to convergence it takes
+        # K1's steps and gives K1's vector on the same tiles (ROADMAP P6)
         os.environ["GRAPHMAT_KERNEL"] = "v2"
         try:
             out = counted(f"{tag} BFS {sources[0]} (push)",
@@ -3321,20 +3417,20 @@ def phase_dist_routes(device, scale=16, edge_factor=16, seed=7,
                           "push.sparse", none_of=("k1",))
             check_equal(f"{tag} BFS (push)", out[0],
                         ref["bfs"][sources[0]][0])
-            # K1's iteration count: the push's atomics change a hub's
-            # last bits every step, and above 128 its float32 ulp
-            # exceeds PageRank's 1e-5 tolerance, so a run to convergence
-            # may take thousands of steps (ROADMAP P6)
             pr_p, it_p = counted(f"{tag} PageRank (push)",
-                                 lambda: pagerank.run_pagerank(
-                                     gd, iterations=it_d),
-                                 "push.dense", "push.sparse_got",
-                                 none_of=("k1",))
+                                 lambda: pagerank.run_pagerank(gd),
+                                 "push.mark", "k1.dense",
+                                 "k1.sparse_got_final",
+                                 none_of=("push.dense", "push.sparse",
+                                          "k1.sparse_got"))
         finally:
             os.environ["GRAPHMAT_KERNEL"] = "v2u"
-        pr_1, _ = pagerank.run_pagerank(g1, iterations=it_p)
-        report["errors"][f"{tag} pagerank push"] = check_close(
-            f"{tag} PageRank (push)", pr_p, pr_1, DIST_PR_RTOL)
+        if it_p != it_d:
+            raise AssertionError(f"{tag} PageRank (push): {it_p} "
+                                 f"iterations, K1 {it_d}")
+        check_equal(f"{tag} PageRank (push) against K1 on the tiles", pr_p,
+                    pr_d)
+        report["iterations"][f"{tag} pagerank push"] = it_p
         # K3 (SGD, LDA) and its sparse mode (ACTIVE_ONLY SGD, 10% sent)
         gds = DistGraph(er, mesh)
         lv, r0, r1 = counted(f"{tag} SGD", lambda: sgd.run_sgd(
@@ -3591,6 +3687,337 @@ def phase_dist_slice(device, card, e=None, scale=22, edge_factor=16, seed=1,
     return k1
 
 
+# ----------------------------- the push's sums in a fixed order; converter
+
+PUSH_SHARES = (1e-4, 1e-2, 0.1)   # phase 21 (a): shares of senders sent
+PUSH_REPEATS = 10                 # launches that must give the same bits
+PUSH_MESH = (2, 4)                # phase 21 (a)'s LocalMesh
+CONVERT_RTOL = 1e-5   # of max(1, |pr|): the converted graph's PageRank
+# against the unconverted one's, the same edges relabelled (K1 then sums a
+# row's terms in another order)
+# the steps to convergence may move near PageRank's threshold with that
+# order, by one (ROADMAP H1); at RMAT-20, seed 1, the H100 read 57 steps
+# converted against 56 unconverted on both routes
+CONVERT_STEPS = 1
+
+
+def push_bound_bytes(n, senders, pushed_edges, got, mark=False):
+    """The least bytes of a sparse push sum (or of its mark pass alone):
+    the sent mask, each sender's rowptr pair and x, each pushed edge's
+    receiver once, y (and the count, or the mark bytes) written once."""
+    if mark:
+        return n + 8 * senders + 4 * pushed_edges + n
+    return (n + 12 * senders + 4 * pushed_edges + 4 * n
+            + (4 * n if got else 0))
+
+
+def pagerank_routes(what, g, iterations=None, cuda=True):
+    """PageRank on ``g`` under GRAPHMAT_KERNEL=v2u and =v2: {route: (pr,
+    niter)}; the push's run must launch the mark pass and K1 (the dense
+    sum, the degree pass's sparse sum with the mark's rows final) and no
+    min/max push or unmarked sparse K1."""
+    from graphmat_tpu_torch.apps import pagerank
+    out = {}
+    try:
+        for route in ("v2u", "v2"):
+            os.environ["GRAPHMAT_KERNEL"] = route
+            reset_counts()
+            out[route] = pagerank.run_pagerank(g, iterations=iterations) \
+                if iterations else pagerank.run_pagerank(g)
+            c = read_counts()
+            if cuda and route == "v2":
+                need_launch(f"{what} PageRank (push)", c, "push.mark",
+                            "k1.dense", "k1.sparse_got_final",
+                            none_of=("push.dense", "push.sparse",
+                                     "k1.sparse_got"))
+    finally:
+        os.environ["GRAPHMAT_KERNEL"] = "v2u"
+    return out
+
+
+def check_push_pagerank(what, routes):
+    """The push's PageRank took K1's steps and gave K1's vector, bit for
+    bit; returns the step count."""
+    (pr_k, it_k), (pr_p, it_p) = routes["v2u"], routes["v2"]
+    if it_p != it_k:
+        raise AssertionError(f"{what}: the push took {it_p} steps, K1 "
+                             f"{it_k}")
+    if not np.array_equal(pr_p.view(np.int32), pr_k.view(np.int32)):
+        raise AssertionError(f"{what}: the push's PageRank is not K1's bit "
+                             "for bit")
+    return it_k
+
+
+def phase_push_sums(device, card, e=None, scale=22, edge_factor=16, seed=1,
+                    small_scale=16, mesh_shape=PUSH_MESH, reps=20,
+                    convergence_check=True):
+    """Phase 21 (a): the push's sums on K1's fixed order (ROADMAP P6),
+    on ``e`` (phase 5's RMAT-``scale`` edge list; drawn when None)."""
+    import torch
+    from graphmat_tpu_torch import Graph
+    from graphmat_tpu_torch.apps import incremental_pagerank as ipr
+    from graphmat_tpu_torch.apps import pagerank
+    from graphmat_tpu_torch.ops.spmv2 import (plan_for, push_mark,
+                                              push_mark_reference,
+                                              spmv_push, spmv_push_reference)
+    from graphmat_tpu_torch.ops.spmv2u import spmv
+    from graphmat_tpu_torch.parallel.dist_graph import DistGraph
+    from graphmat_tpu_torch.parallel.mesh import LocalMesh
+    from graphmat_tpu_torch.utils.generators import rmat_edgelist
+    cuda = torch.device(device).type == "cuda"
+    t_start = time.perf_counter()
+    if e is None:
+        e = rmat_edgelist(scale, edge_factor, seed=seed, device=device)
+    g = Graph(e, device=device, permute="degree")
+    rc, sc = g.csr("dst"), g.sender_csr("dst")
+    n = g.n_pad
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 20)
+    x = torch.rand(n, generator=gen, device=device)
+    send, recv = sc.row.long(), sc.col.long()
+    outdeg = sc.rowptr.diff().long()
+    report = {"card": card, "scale": scale, "n": g.n, "nnz": sc.nnz,
+              "sums": {}}
+    err = 0.0
+    cases = [("dense", None, False)]
+    for share in PUSH_SHARES:
+        sent = (torch.rand(n, generator=gen, device=device) < share).to(
+            torch.uint8)
+        cases += [(f"sparse {share:g}", sent, False),
+                  (f"sparse_got {share:g}", sent, True)]
+    for name, sent, got in cases:
+        def push():
+            return spmv_push(sc, x, "sum", "x", sent=sent, want_got=got,
+                             recv_csr=rc)
+
+        def k1():
+            return spmv(rc, x, "sum", "x", sent=sent, want_got=got)
+        runs = [push() for _ in range(PUSH_REPEATS)]
+        ref_k1 = k1()
+        sync(device)
+        y_k1, c_k1 = ref_k1 if got else (ref_k1, None)
+        for r in runs:
+            y, c = r if got else (r, None)
+            if not torch.equal(y.view(torch.int32), y_k1.view(torch.int32)):
+                raise AssertionError(f"push {name} sum: not K1's bits, or "
+                                     "not the same bits in every launch")
+            if got and not torch.equal(c, c_k1):
+                raise AssertionError(f"push {name} sum: counts differ from "
+                                     "K1's")
+        w = x if sent is None else x * sent.float()
+        exact = torch.zeros(n, dtype=torch.float64, device=device
+                            ).index_add_(0, recv, w[send].double())
+        err = max(err, compare_out(
+            f"push {name} sum against float64", y_k1.double(), exact, "sum",
+            sum_bound(recv, send, x[send], n, sent).double()))
+        rec = {}
+        if got:
+            cnt = torch.zeros(n, dtype=torch.int32, device=device
+                              ).index_add_(0, recv, sent[send].int())
+            if not torch.equal(c_k1, cnt):
+                raise AssertionError(f"push {name} sum: counts are not the "
+                                     "exact in-edge counts")
+        if sent is not None:
+            mark = push_mark(sc.rowptr, sc.col, sent, n,
+                             plan=plan_for(sc) if cuda else None)
+            mark_err = float((mark.int() - push_mark_reference(
+                sc.rowptr, sc.col, sent, n, sc.row).int()).abs().max())
+            report["mark_max_abs_err"] = max(
+                report.get("mark_max_abs_err", 0.0), mark_err)
+            if mark_err:
+                raise AssertionError(f"push {name}: the mark pass differs "
+                                     "from its plain version")
+            rec["senders"] = int(sent.sum())
+            rec["pushed_edges"] = int(outdeg[sent.bool()].sum())
+            rec["bound_ms"] = hbm_ms(push_bound_bytes(
+                n, rec["senders"], rec["pushed_edges"], got))
+            rec["mark_bound_ms"] = hbm_ms(push_bound_bytes(
+                n, rec["senders"], rec["pushed_edges"], got, mark=True))
+        else:
+            rec["bound_ms"] = hbm_ms(4 * (rc.rowptr.numel() + rc.nnz + 2 * n))
+        if cuda:
+            rec["push_ms"] = event_ms(push, reps)
+            rec["k1_ms"] = event_ms(k1, reps)
+            if sent is not None:
+                rec["mark_ms"] = event_ms(lambda: push_mark(
+                    sc.rowptr, sc.col, sent, n, plan=plan_for(sc)), reps)
+            if sent is None:
+                rec["cusparse_ms"] = cusparse_ms(rc.rowptr, rc.col, x, reps)
+            if sent is None or name == "sparse_got 0.01":
+                rec["plain_ms"] = event_ms(lambda: spmv_push_reference(
+                    sc, x, "sum", "x", sent=sent, want_got=got,
+                    recv_csr=rc), 3, warm=1)
+            if name == "sparse 0.01":
+                rec["mark_plain_ms"] = event_ms(lambda: push_mark_reference(
+                    sc.rowptr, sc.col, sent, n, sc.row), 3, warm=1)
+        report["sums"][name] = rec
+    report["max_abs_err"] = err
+    del rc, sc, send, recv, outdeg, x
+    log(f"phase 21 (a): RMAT-{scale} (n={g.n}, nnz={g.nnz}): the push's "
+        f"dense, sparse and sparse-got sums at {PUSH_SHARES} of senders "
+        f"equal K1's bits in {PUSH_REPEATS} launches each, within SUM_RTOL "
+        f"of float64 (max |err| {err:.3e})")
+
+    # PageRank to convergence on the push route: one device and tiles
+    report["pagerank_iterations"] = {}
+    mesh = LocalMesh([device] * (mesh_shape[0] * mesh_shape[1]), mesh_shape)
+    tag = f"{mesh_shape[0]}x{mesh_shape[1]}"
+    for sc_name, edges in ((f"RMAT-{scale}", e),
+                           (f"RMAT-{small_scale}", None)):
+        if edges is None:
+            edges = rmat_edgelist(small_scale, edge_factor, seed=seed,
+                                  device=device)
+            g = Graph(edges, device=device, permute="degree")
+        it_1 = check_push_pagerank(f"{sc_name} one device", pagerank_routes(
+            sc_name, g, cuda=cuda))
+        pr_1 = g.vp_numpy()["pagerank"]
+        gd = DistGraph(edges, mesh)
+        it_t = check_push_pagerank(f"{sc_name} {tag}", pagerank_routes(
+            f"{sc_name} {tag}", gd, cuda=cuda))
+        pr_t = gd.vp_numpy()["pagerank"]
+        if it_t != it_1:   # the one-device run to the tiles' step count
+            pr_1, _ = pagerank.run_pagerank(g, iterations=it_t)
+        report["pagerank_iterations"][sc_name] = {"one_device": it_1,
+                                                  tag: it_t}
+        report[f"{sc_name} {tag} pagerank_rel_err"] = check_close(
+            f"{sc_name} {tag} PageRank (push)", pr_t, pr_1, DIST_PR_RTOL)
+        del gd
+    # IncPR on the push, RMAT-small: K1's vector, the float64 fixed point
+    ipr_out = {}
+    try:
+        for route in ("v2u", "v2"):
+            os.environ["GRAPHMAT_KERNEL"] = route
+            ipr_out[route] = ipr.run_incremental_pagerank(g)[0]
+    finally:
+        os.environ["GRAPHMAT_KERNEL"] = "v2u"
+    if not np.array_equal(ipr_out["v2"].view(np.int32),
+                          ipr_out["v2u"].view(np.int32)):
+        raise AssertionError("IncPR (push): not K1's vector bit for bit")
+    fp, _ = pagerank_fixed_point(edges.src.long() - 1, edges.dst.long() - 1,
+                                 g.n)
+    fp = fp.cpu().numpy()
+    report["incpr_rel_err"] = float(np.max(np.abs(ipr_out["v2"] - fp)
+                                           / np.maximum(1.0, np.abs(fp))))
+    if report["incpr_rel_err"] > INCPR_RTOL["v2"]:
+        raise AssertionError(f"IncPR (push): off the float64 fixed point by "
+                             f"{report['incpr_rel_err']}")
+    if convergence_check:
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, os.path.join("scripts",
+                                          "torch_push_convergence.py"),
+             "--scale", str(small_scale), "--reps", "2", "--check"],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            raise AssertionError("torch_push_convergence.py --check failed:"
+                                 f"\n{res.stdout}\n{res.stderr[-2000:]}")
+        report["convergence_script"] = json.loads(
+            res.stdout.strip().splitlines()[-1])
+        report["convergence_script_s"] = time.perf_counter() - t0
+    report["seconds"] = time.perf_counter() - t_start
+    log("phase 21 (a): " + json.dumps(report))
+    return report
+
+
+def phase_converter(device, card, scale=20, edge_factor=16, seed=1,
+                    small_m=1 << 16):
+    """Phase 21 (b): the converter on an RMAT-``scale`` binary mtx."""
+    import tempfile
+    import torch
+    from graphmat_tpu_torch import EdgeList, Graph, read_mtx
+    from graphmat_tpu_torch.io import transforms as tf
+    from graphmat_tpu_torch.io.edgelist import load_edgelist, write_edgelist
+    from graphmat_tpu_torch.utils.generators import rmat_edgelist
+    from graphmat_tpu_torch.utils.reference_rng import glibc_square_mapping
+    cuda = torch.device(device).type == "cuda"
+    t_start = time.perf_counter()
+    ed = rmat_edgelist(scale, edge_factor, seed=seed, device=device)
+    e = EdgeList(ed.m, ed.n, ed.src.cpu().numpy(), ed.dst.cpu().numpy(),
+                 ed.val.cpu().numpy())
+    del ed
+    report = {"card": card, "scale": scale, "input_nnz": e.nnz,
+              "mapping_s": {}}
+    for m in (small_m, max(e.m, e.n)):
+        t0 = time.perf_counter()
+        c = glibc_square_mapping(m, 5)
+        t1 = time.perf_counter()
+        p = glibc_square_mapping(m, 5, native=False)
+        t2 = time.perf_counter()
+        if not np.array_equal(c, p):
+            raise AssertionError(f"glibc mapping at m={m}: C and numpy "
+                                 "differ")
+        report["mapping_s"][m] = {"c": t1 - t0, "numpy": t2 - t1}
+    with tempfile.TemporaryDirectory() as tmp:
+        src_path = os.path.join(tmp, "rmat.bin.mtx")
+        dst_path = os.path.join(tmp, "rmat_converted.bin.mtx")
+        write_edgelist(e, src_path)
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "graphmat_tpu_torch.io.converter",
+             src_path, dst_path, "--inputformat", "0", "--bidirectional",
+             "--randomizeID"], cwd=ROOT, capture_output=True, text=True,
+            timeout=600)
+        report["converter_s"] = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"converter failed:\n{res.stdout}\n"
+                                 f"{res.stderr[-2000:]}")
+        # the same chain in memory, and its file
+        e_bi = tf.remove_duplicate_edges(tf.create_bidirectional_edges(
+            tf.remove_selfedges(load_edgelist(src_path))))
+        n = max(e_bi.m, e_bi.n)
+        e_bi.m = e_bi.n = n
+        e_conv, perm = tf.randomize_vertex_ids(e_bi, seed=5)
+        want_out = (f"Read {e.nnz} edges, {max(e.m, e.n)} vertices\n"
+                    f"Writing {e_conv.nnz} edges\n")
+        if res.stdout != want_out:
+            raise AssertionError(f"converter printed {res.stdout!r}, not "
+                                 f"{want_out!r}")
+        ref_path = os.path.join(tmp, "chain.bin.mtx")
+        write_edgelist(e_conv, ref_path)
+        with open(dst_path, "rb") as f1, open(ref_path, "rb") as f2:
+            if f1.read() != f2.read():
+                raise AssertionError("converter output differs from the "
+                                     "transform chain's file")
+        g_conv = read_mtx(dst_path, device=device)
+    report["output_nnz"] = e_conv.nnz
+    if g_conv.device.type != torch.device(device).type:
+        raise AssertionError(f"read_mtx built the graph on {g_conv.device}")
+    ge = g_conv.get_edges()
+
+    def keyed(a):
+        s = torch.as_tensor(np.asarray(a.src), device=device).long() - 1
+        d = torch.as_tensor(np.asarray(a.dst), device=device).long() - 1
+        key, order = torch.sort(s * n + d)
+        return key, torch.as_tensor(np.asarray(a.val), device=device)[order]
+    (k1_, v1), (k2_, v2) = keyed(ge), keyed(e_conv)
+    if not (torch.equal(k1_, k2_) and torch.equal(v1.long(), v2.long())):
+        raise AssertionError("read_mtx's edges differ from the transform "
+                             "chain's")
+    # PageRank on the converted graph against the unconverted one
+    g_bi = Graph(e_bi, device=device)
+    conv = pagerank_routes("converted", g_conv, cuda=cuda)
+    unconv = pagerank_routes("unconverted", g_bi, cuda=cuda)
+    report["pagerank_iterations"] = {}
+    report["pagerank_rel_err"] = {}
+    for route in ("v2u", "v2"):
+        pr_c, it_c = conv[route]
+        pr_u, it_u = unconv[route]
+        if abs(it_c - it_u) > CONVERT_STEPS:
+            raise AssertionError(f"converted PageRank ({route}): {it_c} "
+                                 f"steps, unconverted {it_u}")
+        rel = rel_err(pr_c[perm - 1], pr_u)
+        if not np.isfinite(pr_c).all() or rel > CONVERT_RTOL:
+            raise AssertionError(f"converted PageRank ({route}): off the "
+                                 f"unconverted one by {rel}")
+        report["pagerank_iterations"][route] = {"converted": it_c,
+                                                "unconverted": it_u}
+        report["pagerank_rel_err"][route] = rel
+    check_push_pagerank("converted graph", conv)
+    report["seconds"] = time.perf_counter() - t_start
+    log("phase 21 (b): " + json.dumps(report))
+    return report
+
+
 def kernel_record(name, source, replaces, launches, err, ms, plain_ms,
                   bound_ms, bound_by, library_ms):
     return {"name": name, "route": "cuda", "source": source,
@@ -3622,6 +4049,7 @@ def main(argv=None):
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
 
+    from graphmat_tpu_torch import native
     from graphmat_tpu_torch.ops import _lib
     t0 = time.perf_counter()
     lib_path = _lib.build()
@@ -3629,6 +4057,11 @@ def main(argv=None):
     log(f"phase 2: kernels built and loaded in "
         f"{time.perf_counter() - t0:.1f} s ({lib_path.name})")
     log(lib_path.with_suffix(".log").read_text().strip())
+    t0 = time.perf_counter()
+    host_path = native.build()
+    native.load()
+    log(f"phase 2: host library built and loaded in "
+        f"{time.perf_counter() - t0:.1f} s ({host_path.name})")
 
     k1_err = k3_err = push_err = 0.0
     if want(3):
@@ -3677,7 +4110,7 @@ def main(argv=None):
         trav, gw = phase_traversal("cuda")
     if want(15):
         t4 = phase_traversal_timings(card, trav, gw)
-        push_err = max(push_err, t4["push_dense_sum"]["max_abs_err"])
+        push_err = max(push_err, t4["push_dense_max"]["max_abs_err"])
     if want(14):
         del gw
 
@@ -3701,7 +4134,13 @@ def main(argv=None):
     if want(20):
         phase_dist_routes("cuda")
         dist_b = phase_dist_slice("cuda", card, e=e_slice)
-    del e_slice
+    if want(21):
+        p21 = phase_push_sums("cuda", card, e=e_slice)
+        k1_err = max(k1_err, p21["max_abs_err"])   # a push sum is K1's
+        del e_slice
+        phase_converter("cuda", card)
+    else:
+        del e_slice
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     if only:
         return
@@ -3715,7 +4154,10 @@ def main(argv=None):
     k1_path = sum(k1.values()) + total("k1") + launches(dist_b, "k1")
     k2_path = k2["aux_gather"] + total("k2")
     log(card)
-    pd = t4["push_dense_sum"]
+    pmax, pm = t4["push_dense_max"], p21["sums"]["sparse 0.01"]
+    # the push kernel's launches (min/max) apart from its mark pass's
+    push_path = total("push") - total("push.mark")
+    mark_path = total("push.mark")
     sp, k5t = t5["d"]["sparse_0.1"], t5["d"]["k5"]
     kernels = {"kernels": [
         kernel_record(
@@ -3742,11 +4184,19 @@ def main(argv=None):
             sum(k3_lda.values()), k3_err, t3["k3_ms"]["lda_ms"],
             t3["k3_ms"]["lda_plain_ms"], t3["k3_ms"]["lda_bound_ms"],
             t3["k3_ms"]["lda_bound_by"], None),
+        # the push kernel (K7, its min/max modes): its dense max at
+        # RMAT-22 (phase 15); a push sum is K1's sweep and counts there
         kernel_record(
             "spmv2", "graphmat_tpu_torch/csrc/spmv2.cu",
-            "graphmat_tpu/ops/pallas_spmv2.py:388 and :1154",
-            total("push"), push_err, pd["ms"],
-            pd["plain_ms"], pd["bound_ms"], "bytes", pd["cusparse_ms"]),
+            "graphmat_tpu/ops/pallas_spmv2.py:1154", push_path, push_err,
+            pmax["ms"], pmax["plain_ms"], pmax["bound_ms"], "bytes", None),
+        # K6's own part, the mark pass of a sparse push sum, 1% of senders
+        # sent at RMAT-22 (phase 21); no PyTorch call computes it
+        kernel_record(
+            "spmv2 mark pass", "graphmat_tpu_torch/csrc/spmv2.cu",
+            "graphmat_tpu/ops/pallas_spmv2.py:388", mark_path,
+            p21["mark_max_abs_err"], pm["mark_ms"], pm["mark_plain_ms"],
+            pm["mark_bound_ms"], "bytes", None),
         # K4: the sparse mode, sgd, one direction, 10% of senders sent
         kernel_record(
             "spmv_vec2_sparse", "graphmat_tpu_torch/csrc/spmv_vec2.cu",
@@ -3784,6 +4234,9 @@ def main(argv=None):
             t6["rmat22"]["kernels"]["t2_plain_ms"],
             t6["rmat22"]["kernels"]["t2_bound_ms"], "bytes", None),
     ]}
+    idle = [r["name"] for r in kernels["kernels"] if r["launches"] == 0]
+    if idle:
+        raise AssertionError(f"the main path launched no {idle}")
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

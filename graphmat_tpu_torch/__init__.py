@@ -21,6 +21,20 @@ from .io.edgelist import EdgeList, load_edgelist, write_edgelist, \
     edgelist_from_arrays
 from .io import transforms
 
+
+def read_mtx(path, binaryformat=True, header=True, edgeweights=True,
+             wdtype=None, device="cuda", **graph_kw):
+    """``Graph::ReadMTX`` parity: load an edge list file (or shard prefix)
+    and build a :class:`Graph` squared to max(m, n) vertices, on the card
+    unless ``device="cpu"`` is passed (without a card the default raises,
+    as ``Graph`` does)."""
+    kw = dict(binaryformat=binaryformat, header=header,
+              edgeweights=edgeweights)
+    if wdtype is not None:
+        kw["wdtype"] = wdtype
+    return Graph(load_edgelist(path, **kw), device=device, **graph_kw)
+
+
 __version__ = "0.1.0"
 
 __all__ = [
@@ -28,5 +42,5 @@ __all__ = [
     "UNTIL_CONVERGENCE", "Graph", "GraphProgram", "IterationContext",
     "Semiring", "VecSemiring", "Engine", "engine_for", "graph_program_init",
     "run_graph_program", "EdgeList", "load_edgelist", "write_edgelist",
-    "edgelist_from_arrays", "transforms",
+    "edgelist_from_arrays", "transforms", "read_mtx",
 ]

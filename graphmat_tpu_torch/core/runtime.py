@@ -16,9 +16,11 @@ of runtime.py:278-352, after ``include/GraphMatRuntime.h:94-279``):
    ``GRAPHMAT_KERNEL`` names (:func:`legacy_kernel_env`): ``v2u``, the
    default, runs K1 (:func:`graphmat_tpu_torch.ops.spmv2u.spmv`) over the
    receiver CSR, with the program's receiver-finality mask on sparse
-   sweeps; ``v2`` runs the push kernel that stands for K6/K7
-   (:func:`graphmat_tpu_torch.ops.spmv2.spmv_push`) over the direction's
-   sender-major index; else the plain segment reduce, or for a
+   sweeps; ``v2`` runs the push that stands for K6/K7
+   (:func:`graphmat_tpu_torch.ops.spmv2.spmv_push`): min and max over the
+   direction's sender-major index, a sum as K1 over the receiver CSR
+   (after the push's mark pass on a sparse sweep), so that its sums repeat
+   exactly; else the plain segment reduce, or for a
    ``vector_message`` program the concat reduce
    (:func:`graphmat_tpu_torch.ops.segment.segment_concat`), as in JAX
    (runtime.py:158-161, 308-335);
@@ -166,9 +168,10 @@ class Routing:
         return msg, sent
 
     def _receiver_final(self, state, vp, it, valid):
-        """K1's receiver-finality mask (uint8) for a sparse sweep, or
-        None."""
-        if self._push or self._dense:
+        """The receiver-finality mask (uint8) of a sparse sweep on K1 or
+        a push sum (whose K1 sweep honours it), or None."""
+        if self._dense or (self._push
+                           and self._semiring.reduce_kind != "sum"):
             return None
         rf = self.program.receiver_final(state, vp, it)
         # pad vertices can never change: count them final
@@ -183,10 +186,12 @@ class Routing:
 
     def _kernel_tile(self, csr_of, x, sent_u8, recv_final):
         """Every direction of one tile through a scalar SpMV kernel, K1 or
-        (under ``GRAPHMAT_KERNEL=v2``) the push kernel: (reduced, count),
-        the count of messages a receiver got only for a sparse sum (else
+        (under ``GRAPHMAT_KERNEL=v2``) the push: (reduced, count), the
+        count of messages a receiver got only for a sparse sum (else
         None).  ``recv_final`` (uint8 per receiver, or None) is given for
-        K1's sparse sweeps only."""
+        sparse sweeps of K1 and of a push sum only.  A push sum runs K1
+        over the tile's own receiver CSR, whose sender-major index the
+        push's mark pass reads."""
         sem = self._semiring
         kind = sem.reduce_kind
         read_val = sem.uses_edge_value and sem.process_op != "x"
@@ -195,9 +200,11 @@ class Routing:
             csr = csr_of(recv, self._push)
             val = csr.val_f32 if read_val else None
             if self._push:
+                kw = (dict(recv_csr=csr_of(recv, False),
+                           recv_final=recv_final) if kind == "sum" else {})
                 out = spmv_push(csr, x, kind, sem.process_op, val=val,
                                 sent=sent_u8, want_got=self._want_got,
-                                bits=sem.bits)
+                                bits=sem.bits, **kw)
             else:
                 out = spmv(csr, x, kind, sem.process_op, val=val,
                            sent=sent_u8, want_got=self._want_got,

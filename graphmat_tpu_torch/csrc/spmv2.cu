@@ -14,21 +14,38 @@
 // (rowptr over senders, col = receiver of each edge, val), so the work of
 // a level is the frontier's out-edges, not the whole edge set.
 //
-//   (+) in {sum, min, max}, identities 0, +inf, -inf (true infinities:
-//       the JAX kernel path clamps to +-1e30 instead).  The wrapper fills
-//       y with the identity (and got with 0) before the launch.
-//   (x) in {x, x*val, x+val, key+val}: K1's closed set (csrc/spmv2u.cu).
-//   dense:      every sender pushes (PageRank under GRAPHMAT_KERNEL=v2).
-//   sparse:     only senders with sent[s] != 0 push.
-//   sparse got: sum only; also an int32 count per receiver of the edges
-//               from senders that sent (the JAX kernel rides that bit in
-//               x's low mantissa bit instead).
+// This file holds the push's two modes that touch receivers from the
+// senders' side:
+//
+//   min/max (K7): y[r] = min or max over the pushed edges, by atomics.
+//       (+) in {min, max}, identities +inf, -inf (true infinities: the
+//       JAX kernel path clamps to +-1e30 instead); the wrapper fills y
+//       with the identity first.  (x) in {x, x*val, x+val, key+val}:
+//       K1's closed set (csrc/spmv2u.cu).  dense: every sender pushes;
+//       sparse: only senders with sent[s] != 0.
+//   mark (K6's first pass): for every pushed edge of a sender that sent,
+//       mark[r] = 0, over a uint8 array the wrapper fills with 1.  The
+//       byte is read first and stored only while it is still 1, so a hub
+//       receiver takes a handful of stores, not one per in-edge.
+//
+// A float sum by atomics has no fixed order, so its last bits would change
+// from launch to launch, and PageRank, whose 1e-5 tolerance lies below the
+// float32 ulp of a value above 128, might never converge (ROADMAP P6).
+// So the push sums nothing here.  A sum runs K1 (csrc/spmv2u.cu) over the
+// direction's receiver CSR, which the graph holds anyway: the dense sum is
+// K1's dense sweep; a sparse sum (with or without the got count) is this
+// file's mark pass, then K1's sparse sweep with the unmarked rows as its
+// receiver-final skip (ops/spmv2.py: spmv_push).  So the push's sums and
+// counts equal K1's bit for bit and repeat from launch to launch, and the
+// JAX K6, which sums in a fixed order, is matched in that too.
 //
 // What bounds it on an H100: per pushed edge it streams col (4 B) and val
-// (4 B, when (x) reads it) and makes one atomic to y (and one to got) in
-// L2; per sender it reads sent (1 B), and per active sender rowptr and x.
-// At RMAT-22 y is 16 MB and sits in the 50 MB L2, so a dense push is
-// bound by L2 atomic throughput, a sparse level by its frontier's edges.
+// (4 B, when (x) reads it) and makes one atomic to y in L2 (min/max) or
+// one byte read and at most one byte store (mark); per sender it reads
+// sent (1 B), and per active sender rowptr and x.  At RMAT-22 y is 16 MB
+// and the mark array 4 MB, both in the 50 MB L2, so a dense min/max push
+// is bound by L2 atomic throughput, a sparse level by its frontier's
+// edges.
 //
 // The design: work goes to warps by edges, not by senders.  A chunk is at
 // most C = 1024 consecutive edges of one tile of 32 consecutive senders:
@@ -55,31 +72,26 @@
 // search over the scan (shuffles, no memory) and its edge as that
 // sender's start plus the offset.  So every lane carries an edge on every
 // step whatever the degrees, and consecutive lanes read consecutive col.
-// Each edge (+)-combines into y[r] with an atomic:
-//   sum: atomicAdd on float (and on int for got);
-//   min/max: the ordered-integer trick.  A non-negative float orders as
-//     its int32 bits and a negative one inversely as its uint32 bits, so
-//     min is atomicMin on the int bits of a value with the sign bit clear
-//     and atomicMax on the unsigned bits of one with it set (max the
-//     mirror).  +-inf are ordinary patterns there.  -0.0 orders below
-//     +0.0, where fminf treats them as equal; the apps' payloads (vertex
-//     ids, labels, distances, packed keys) are integers or keys and never
-//     produce -0.0.  A read of y first skips the atomic when it cannot
-//     improve y (y only moves one way, so a stale read is safe); that
-//     also drops NaN contributions, as fminf/fmaxf in K1 do.
-// Min and max are order-free, so they equal K1 and the plain version
-// exactly.  A sum by atomics has no fixed order: float sums differ from
-// run to run in the last bits (ROADMAP H1); integer payloads below 2^24
-// and the got counts are exact in any order.
+// Each edge (+)-combines into y[r] with an atomic, the ordered-integer
+// trick: a non-negative float orders as its int32 bits and a negative one
+// inversely as its uint32 bits, so min is atomicMin on the int bits of a
+// value with the sign bit clear and atomicMax on the unsigned bits of one
+// with it set (max the mirror).  +-inf are ordinary patterns there.  -0.0
+// orders below +0.0, where fminf treats them as equal; the apps' payloads
+// (vertex ids, labels, distances, packed keys) are integers or keys and
+// never produce -0.0.  A read of y first skips the atomic when it cannot
+// improve y (y only moves one way, so a stale read is safe); that also
+// drops NaN contributions, as fminf/fmaxf in K1 do.  Min and max are
+// order-free, so they equal K1 and the plain version exactly.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-enum Reduce { kSum = 0, kMin = 1, kMax = 2 };
+enum Reduce { kMin = 1, kMax = 2 };   // 0 (sum) goes to K1
 enum Process { kX = 0, kXMulVal = 1, kXAddVal = 2, kKeyAddVal = 3 };
-enum Mode { kDense = 0, kSparse = 1, kSparseGot = 2 };
+enum Mode { kDense = 0, kSparse = 1, kMark = 2 };
 
 constexpr int kWarpsPerBlock = 8;
 constexpr int kChunkEdges = 1024;   // C; ops/spmv2.py: CHUNK_EDGES
@@ -102,10 +114,6 @@ __device__ __forceinline__ float process(float x, float v, int bits) {
 
 template <int R>
 __device__ __forceinline__ void combine_atomic(float* y, float u) {
-  if (R == kSum) {
-    atomicAdd(y, u);
-    return;
-  }
   const float cur = *reinterpret_cast<volatile float*>(y);
   if (R == kMin) {
     if (!(u < cur)) return;
@@ -131,13 +139,14 @@ struct Args {
   const int* extra_tile;
   const int* extra_k;
   float* y;
-  int* got;
+  uint8_t* mark;
   int n_tiles;
   int n_extra;
   int n_send;
   int bits;
 };
 
+// R and P are unused in the mark mode (instantiated as kMin, kX)
 template <int R, int P, int M>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 push_kernel(const Args a) {
@@ -166,7 +175,7 @@ push_kernel(const Args a) {
   if (act) {
     start = max(lo, e_lo);
     len = max(min(hi, e_hi) - start, 0);
-    if (len > 0) xs = __ldg(a.x + s);
+    if (M != kMark && len > 0) xs = __ldg(a.x + s);
   }
   int incl = len;   // inclusive scan of the lanes' edge counts
 #pragma unroll
@@ -189,9 +198,14 @@ push_kernel(const Args a) {
     const float xj = __shfl_sync(kFull, xs, j);
     if (t < total) {
       const int r = __ldg(a.col + e);
-      const float v = (P == kX) ? 0.0f : __ldg(a.val + e);
-      combine_atomic<R>(a.y + r, process<P>(xj, v, a.bits));
-      if (M == kSparseGot) atomicAdd(a.got + r, 1);
+      if (M == kMark) {
+        // every writer stores 0, so the race is benign; the read keeps a
+        // hub receiver's line from taking a store per in-edge
+        if (a.mark[r]) a.mark[r] = 0;
+      } else {
+        const float v = (P == kX) ? 0.0f : __ldg(a.val + e);
+        combine_atomic<R>(a.y + r, process<P>(xj, v, a.bits));
+      }
     }
   }
 }
@@ -206,12 +220,6 @@ bool launch_mode(int mode, dim3 grid, cudaStream_t st, const Args& a) {
   switch (mode) {
     case kDense: launch<R, P, kDense>(grid, st, a); return true;
     case kSparse: launch<R, P, kSparse>(grid, st, a); return true;
-    case kSparseGot:
-      if constexpr (R == kSum) {
-        launch<R, P, kSparseGot>(grid, st, a);
-        return true;
-      }
-      return false;
   }
   return false;
 }
@@ -228,41 +236,62 @@ bool launch_process(int proc, int mode, dim3 grid, cudaStream_t st,
   return false;
 }
 
+dim3 grid_of(int n_send, int n_extra) {
+  const int n_warps = (n_send + 31) / 32 + n_extra;
+  return dim3((n_warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
+}
+
 }  // namespace
 
-// One launch of the push SpMV.  rowptr int32[n_send + 1] over senders, col
-// int32[nnz] the receiver of each edge (nnz < 2^31 - C), y (and got)
-// already filled with the identity (and 0); extra_tile and extra_k
-// int32[n_extra], the plan's further chunks (chunk k of tile t: edges
-// [rowptr[32t] + k*C, + C) of senders [32t, 32t + 32)).  reduce: 0 sum, 1
-// min, 2 max; process: 0 x, 1 x*val, 2 x+val, 3 key+val (shift `bits`);
-// mode: 0 dense, 1 sparse, 2 sparse with got (sum only).  Pointers the
-// mode or process does not read may be null.  Returns cudaGetLastError().
+// One launch of the min/max push SpMV.  rowptr int32[n_send + 1] over
+// senders, col int32[nnz] the receiver of each edge (nnz < 2^31 - C), y
+// already filled with the identity; extra_tile and extra_k int32[n_extra],
+// the plan's further chunks (chunk k of tile t: edges [rowptr[32t] + k*C,
+// + C) of senders [32t, 32t + 32)).  reduce: 1 min, 2 max (a sum is K1's:
+// 0 is refused); process: 0 x, 1 x*val, 2 x+val, 3 key+val (shift `bits`);
+// mode: 0 dense, 1 sparse.  Pointers the mode or process does not read may
+// be null.  Returns cudaGetLastError().
 extern "C" int gm_spmv_push(const void* rowptr, const void* col,
                             const void* val, const void* x, const void* sent,
-                            void* y, void* got, const void* extra_tile,
+                            void* y, const void* extra_tile,
                             const void* extra_k, int n_extra, int n_send,
                             int reduce, int process, int mode, int bits,
                             void* stream) {
   if (n_send <= 0 || n_extra < 0 || bits < 0 || bits > 31)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int n_tiles = (n_send + 31) / 32;
-  const int n_warps = n_tiles + n_extra;
-  const int blocks = (n_warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
   const Args a{static_cast<const int*>(rowptr), static_cast<const int*>(col),
                static_cast<const float*>(val), static_cast<const float*>(x),
                static_cast<const uint8_t*>(sent),
                static_cast<const int*>(extra_tile),
                static_cast<const int*>(extra_k), static_cast<float*>(y),
-               static_cast<int*>(got), n_tiles, n_extra, n_send, bits};
+               nullptr, (n_send + 31) / 32, n_extra, n_send, bits};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(blocks);
+  const dim3 grid = grid_of(n_send, n_extra);
   bool ok = false;
   switch (reduce) {
-    case kSum: ok = launch_process<kSum>(process, mode, grid, st, a); break;
     case kMin: ok = launch_process<kMin>(process, mode, grid, st, a); break;
     case kMax: ok = launch_process<kMax>(process, mode, grid, st, a); break;
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One launch of the mark pass: mark[col[e]] = 0 for every edge e of a
+// sender with sent[s] != 0, the index and plan as gm_spmv_push's; mark
+// uint8[n_recv] already filled with 1.  Returns cudaGetLastError().
+extern "C" int gm_push_mark(const void* rowptr, const void* col,
+                            const void* sent, void* mark,
+                            const void* extra_tile, const void* extra_k,
+                            int n_extra, int n_send, void* stream) {
+  if (n_send <= 0 || n_extra < 0 || sent == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{static_cast<const int*>(rowptr), static_cast<const int*>(col),
+               nullptr, nullptr, static_cast<const uint8_t*>(sent),
+               static_cast<const int*>(extra_tile),
+               static_cast<const int*>(extra_k), nullptr,
+               static_cast<uint8_t*>(mark), (n_send + 31) / 32, n_extra,
+               n_send, 0};
+  launch<kMin, kX, kMark>(grid_of(n_send, n_extra),
+                          static_cast<cudaStream_t>(stream), a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -59,6 +59,15 @@ class EdgeList:
         return EdgeList(self.m, self.n, dup(self.src), dup(self.dst),
                         dup(self.val))
 
+    def astuple(self):
+        return self.src, self.dst, self.val
+
+    def as_records(self) -> set:
+        """The set of ``(src, dst, val)`` python tuples, from numpy or
+        torch backing: an order-insensitive compare."""
+        cols = [a.tolist() for a in (self.src, self.dst, self.val)]
+        return set(zip(*cols))
+
     def validate(self) -> None:
         """Raise if an id lies outside ``[1, m]`` / ``[1, n]``."""
         if self.nnz:

@@ -105,8 +105,10 @@ def load() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.gm_spmv.argtypes = [p] * 17 + [i] * 11 + [p]
     lib.gm_spmv.restype = i
-    lib.gm_spmv_push.argtypes = [p] * 9 + [i] * 6 + [p]
+    lib.gm_spmv_push.argtypes = [p] * 8 + [i] * 6 + [p]
     lib.gm_spmv_push.restype = i
+    lib.gm_push_mark.argtypes = [p] * 6 + [i] * 2 + [p]
+    lib.gm_push_mark.restype = i
     lib.gm_aux_gather.argtypes = [p] * 5 + [ctypes.c_longlong, p]
     lib.gm_aux_gather.restype = i
     f = ctypes.c_float

@@ -1,6 +1,7 @@
 """Synthetic graph generators (fixtures and benchmark inputs).
 
-Counterpart of ``graphmat_tpu/utils/generators.py``.  ``chain_edgelist``,
+Counterpart of ``graphmat_tpu/utils/generators.py``.
+``identity_edgelist``, ``chain_edgelist``, ``circular_chain_edgelist``,
 ``random_edgelist``, ``upper_triangular_edgelist`` and ``dense_edgelist``
 are numpy and give the same edges as the JAX package for the same
 arguments.  ``rmat_edgelist`` runs on a torch
@@ -18,8 +19,15 @@ import torch
 from ..io.edgelist import EdgeList, edgelist_from_arrays
 from ..io.transforms import remove_duplicate_edges, remove_selfedges
 
-__all__ = ["chain_edgelist", "random_edgelist", "upper_triangular_edgelist",
-           "dense_edgelist", "rmat_edgelist"]
+__all__ = ["identity_edgelist", "chain_edgelist", "circular_chain_edgelist",
+           "random_edgelist", "upper_triangular_edgelist", "dense_edgelist",
+           "rmat_edgelist"]
+
+
+def identity_edgelist(n: int, wdtype=np.int32) -> EdgeList:
+    """n self loops with weight 1 (``generator.h`` identity matrix)."""
+    ids = np.arange(1, n + 1, dtype=np.int32)
+    return edgelist_from_arrays(ids, ids, np.ones(n, wdtype), m=n, n=n)
 
 
 def chain_edgelist(n: int, wdtype=np.int32, weight=1) -> EdgeList:
@@ -27,6 +35,13 @@ def chain_edgelist(n: int, wdtype=np.int32, weight=1) -> EdgeList:
     src = np.arange(1, n, dtype=np.int32)
     return edgelist_from_arrays(src, src + 1,
                                 np.full(n - 1, weight, wdtype), m=n, n=n)
+
+
+def circular_chain_edgelist(n: int, wdtype=np.int32) -> EdgeList:
+    """Ring 1→2→...→n→1 (``generator.h`` circular chain)."""
+    src = np.arange(1, n + 1, dtype=np.int32)
+    dst = np.concatenate([np.arange(2, n + 1), [1]]).astype(np.int32)
+    return edgelist_from_arrays(src, dst, np.ones(n, wdtype), m=n, n=n)
 
 
 def random_edgelist(n: int, avg_degree: int, seed: int = 0,

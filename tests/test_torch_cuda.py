@@ -15,7 +15,9 @@ card within 1e-6 (RMSE, factors) or 1e-5 relative (LDA's N, global_N and
 log-likelihood, and factors after K = 40 steps) of the CPU port.  The
 frontier apps on the card equal their CPU runs exactly (depths, parents,
 distances, labels, orders), on both kernel routes; incremental PageRank
-within 1e-5 of max(1, |pr|) (the push route sums by atomics).  T1 and T2
+within 1e-5 of max(1, |pr|) (K1 sums in another order than the CPU).  The
+push's sums are K1's over the receiver CSR: bitwise K1's and the same
+over repeated launches.  T1 and T2
 (TriangleCounting's core and tail counts) equal their plain versions
 exactly, and TriangleCounting and GetNeighbors on the card their CPU
 runs.
@@ -513,6 +515,17 @@ def _rmat_graph(device, scale=12, **kw):
                     device=device, compact=False, **kw)
 
 
+def _weighted_graph(device, scale=12):
+    """The RMAT graph with normal edge values, its sender-major index
+    built: a push sum reads the values of the graph's own edges."""
+    e = rmat_edgelist(scale, 16, seed=3, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    val = torch.randn(e.nnz, generator=gen, device=device)
+    return gt.Graph(gt.EdgeList(e.m, e.n, e.src, e.dst, val), device=device,
+                    compact=False, build_in_edges=False)
+
+
 @pytest.mark.parametrize("share", [0.0, 0.5, 1.0])
 @pytest.mark.parametrize("kind,op", [("min", "x_add_val"), ("sum", "x"),
                                      ("min", "key_add_val")])
@@ -556,22 +569,34 @@ def test_spmv_recv_final_and_keys_match_plain(cuda, kind, op, share):
 @pytest.mark.parametrize("op", ["x", "x_mul_val", "x_add_val"])
 @pytest.mark.parametrize("kind", ["sum", "min", "max"])
 def test_push_kernel_matches_plain(cuda, kind, op, frontier):
-    g = _rmat_graph(cuda, build_in_edges=False)
+    """The push against its plain version: min and max launch the push
+    kernel; a dense sum K1 alone; a sparse sum the mark pass, then K1 with
+    the unmarked rows final."""
+    g = _weighted_graph(cuda)
     sc = g.sender_csr("dst")
     gen = torch.Generator(device=cuda)
     gen.manual_seed(4)
     x = torch.randn(g.n_pad, generator=gen, device=cuda)
-    val = torch.randn(sc.nnz, generator=gen, device=cuda)
+    val = sc.val_f32
     sent = None if frontier is None else (
         torch.rand(g.n_pad, generator=gen, device=cuda) < frontier).to(
             torch.uint8)
     got = kind == "sum" and sent is not None
-    mode = "dense" if sent is None else ("sparse_got" if got else "sparse")
-    before = spmv2.LAUNCHES[mode]
+    mode = "dense" if sent is None else "sparse"
+    if kind != "sum":
+        want = {("push", mode): 1}
+    elif sent is None:
+        want = {("k1", "dense"): 1}
+    else:
+        want = {("push", "mark"): 1, ("k1", "sparse_got_final"): 1}
+    tables = {"push": spmv2.LAUNCHES, "k1": spmv2u.LAUNCHES}
+    before = {k: dict(t) for k, t in tables.items()}
     out = spmv2.spmv_push(sc, x, kind, op, val=val, sent=sent,
                           want_got=got)
     torch.cuda.synchronize()
-    assert spmv2.LAUNCHES[mode] == before + 1
+    launched = {(k, m): n - before[k][m] for k, t in tables.items()
+                for m, n in t.items() if n != before[k][m]}
+    assert launched == want
     ref = spmv2.spmv_push_reference(sc, x, kind, op, val=val, sent=sent,
                                     want_got=got)
     if got:
@@ -616,12 +641,18 @@ def _app_runs(device):
 @pytest.mark.parametrize("route", ["v2u", "v2"])
 def test_frontier_apps_on_cuda_match_cpu(cuda, route, monkeypatch):
     monkeypatch.setenv("GRAPHMAT_KERNEL", route)
-    before = (sum(spmv2u.LAUNCHES.values()), sum(spmv2.LAUNCHES.values()))
+    before = (dict(spmv2u.LAUNCHES), dict(spmv2.LAUNCHES))
     on_card = _app_runs(cuda)
-    after = (sum(spmv2u.LAUNCHES.values()), sum(spmv2.LAUNCHES.values()))
-    launched = [a - b for a, b in zip(after, before)]
-    assert launched[0 if route == "v2u" else 1] > 0
-    assert launched[1 if route == "v2u" else 0] == 0
+    k1, push = ({m: n - b[m] for m, n in t.items()} for t, b in
+                zip((spmv2u.LAUNCHES, spmv2.LAUNCHES), before))
+    if route == "v2u":
+        assert sum(k1.values()) > 0 and sum(push.values()) == 0
+    else:
+        # the push's min/max, and its sums: a sparse sum is the mark pass
+        # and one K1 sweep with the unmarked rows final
+        assert push["dense"] + push["sparse"] > 0 and push["mark"] > 0
+        assert k1["sparse"] == k1["sparse_got"] == 0
+        assert k1["sparse_final"] + k1["sparse_got_final"] == push["mark"]
     on_host = _app_runs("cpu")
     for app, res in on_card.items():
         if app == "incpr":   # the pagerank; thresholds may move niter
@@ -638,10 +669,12 @@ HUB = 1 << 20
 
 
 @functools.lru_cache(maxsize=None)
-def _hub_graph():
+def _hub_graph(int_weights=False):
     """RMAT-12 plus a sender with 2^20 out-edges (0-based id HUB + 1), a
     receiver with 2^20 in-edges (HUB + 2), receivers and senders of
-    exactly 16, 17, 32, 33, 64, 65, C and C + 1 edges, and empty rows."""
+    exactly 16, 17, 32, 33, 64, 65, C and C + 1 edges, and empty rows;
+    normal edge values, or integer weights 1..7 for the packed keys (the
+    push's sums read the graph's own values)."""
     rng = np.random.default_rng(12)
     e = rmat_edgelist(12, 16, seed=3, device="cpu")
     c = spmv2u.CHUNK_EDGES
@@ -654,9 +687,10 @@ def _hub_graph():
         dst += [np.full(ln, HUB + 32 + i), peers]
     src, dst = np.concatenate(src) + 1, np.concatenate(dst) + 1
     n = HUB + 4096
-    return gt.Graph(gt.edgelist_from_arrays(
-        src, dst, np.ones(len(src), np.float32), m=n, n=n),
-        device="cuda", compact=False)
+    val = (rng.integers(1, 8, len(src)) if int_weights
+           else rng.standard_normal(len(src))).astype(np.float32)
+    return gt.Graph(gt.edgelist_from_arrays(src, dst, val, m=n, n=n),
+                    device="cuda", compact=False)
 
 
 def _hub_inputs(g, kind, op, nnz, seed):
@@ -705,7 +739,7 @@ def test_hub_graph_kernels_match_plain(cuda, kind, op, mode):
     """K1 and the push on the hub graph, where hub rows are chunked and
     combined, hub senders spread over many warps and every lane-group
     width runs: min, max and counts bitwise, sums within 1e-5 of Σ|terms|."""
-    g = _hub_graph()
+    g = _hub_graph(op == "key_add_val")
     rc, sc = g.csr("dst"), g.sender_csr("dst")
     x, val, sent, rf = _hub_inputs(g, kind, op, rc.nnz, 7)
     sent = None if mode == "dense" else sent
@@ -720,12 +754,46 @@ def test_hub_graph_kernels_match_plain(cuda, kind, op, mode):
     if mode == "sparse_final":
         return
     x, val, _, _ = _hub_inputs(g, kind, op, sc.nnz, 8)
+    if kind == "sum":   # a push sum reads the graph's own values
+        val = sc.val_f32
     kw = dict(val=val, sent=sent, want_got=got, bits=20)
     _check_against_plain(
         spmv2.spmv_push(sc, x, kind, op, **kw),
         spmv2.spmv_push_reference(sc, x, kind, op, **kw), kind, got,
         spmv2u.PROCESS_OPS[op](x[sc.row.long()], val, 20), sc.col.long(),
         None if sent is None else sent[sc.row.long()].float())
+
+
+@pytest.mark.parametrize("seed", [7, 8])
+@pytest.mark.parametrize("mode", ["dense", "sparse"])
+@pytest.mark.parametrize("route", ["k1", "push"])
+def test_hub_integer_weight_sums_match_float64(cuda, route, mode, seed):
+    """The hub graph with integer weights 1..7: an x_add_val sum, whose
+    hub row holds 2^20 mostly positive terms, through K1 and through the
+    push, within 1e-5 of Σ|terms| of the float64 sum of the same float32
+    terms (held against float64, not the float32 plain version, whose
+    own rounding is the larger)."""
+    g = _hub_graph(True)
+    rc, sc = g.csr("dst"), g.sender_csr("dst")
+    x, _, sent, _ = _hub_inputs(g, "sum", "x_add_val", rc.nnz, seed)
+    sent = None if mode == "dense" else sent
+    got = sent is not None
+    if route == "k1":
+        out = spmv2u.spmv(rc, x, "sum", "x_add_val", val=rc.val_f32,
+                          sent=sent, want_got=got)
+    else:
+        out = spmv2.spmv_push(sc, x, "sum", "x_add_val", val=sc.val_f32,
+                              sent=sent, want_got=got)
+    y = out[0] if got else out
+    terms = spmv2u.PROCESS_OPS["x_add_val"](
+        x[rc.col.long()], rc.val_f32, 0).double()
+    if sent is not None:
+        terms = terms * sent[rc.col.long()].double()
+    row = rc.row.long()
+    exact = torch.zeros(g.n_pad, dtype=torch.float64,
+                        device=cuda).index_add_(0, row, terms)
+    bound = torch.zeros_like(exact).index_add_(0, row, terms.abs()) * 1e-5
+    assert bool(((y.double() - exact).abs() <= bound).all())
 
 
 def test_k1_dense_sum_is_bitwise_repeatable(cuda):
@@ -760,6 +828,77 @@ def test_push_equals_k1_at_a_bfs_level_of_the_hub_graph(cuda):
         b = spmv2.spmv_push(sc, xs, kind, "x", sent=sent)
         assert torch.equal(a[live], b[live])
         assert float(a[HUB + 2]) == (1.0 if kind == "min" else float(HUB))
+
+
+PUSH_SHARES = (1e-4, 1e-2, 0.1, 1.0)   # frontier shares of the push's sums
+
+
+def _push_frontiers(g, seed, hub=False):
+    """A sent mask at each of PUSH_SHARES (the hub sender in each on the
+    hub graph)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    out = []
+    for share in PUSH_SHARES:
+        sent = (torch.rand(g.n_pad, generator=gen, device="cuda")
+                < share).to(torch.uint8)
+        if hub:
+            sent[HUB + 1] = 1
+        out.append(sent)
+    return out
+
+
+@pytest.mark.parametrize("graph", ["rmat", "hub"])
+def test_push_sums_repeat_and_equal_k1(cuda, graph):
+    """P6: the push's dense sum and its sparse sums, with and without the
+    got count, at four frontier shares: the same bits over 4 launches,
+    and K1's sweep of the graph's receiver CSR bit for bit."""
+    hub = graph == "hub"
+    g = _hub_graph() if hub else _weighted_graph(cuda)
+    rc, sc = g.csr("dst"), g.sender_csr("dst")
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(10)
+    x = torch.randn(g.n_pad, generator=gen, device=cuda)
+    for sent in [None] + _push_frontiers(g, 11, hub):
+        for got in ((False,) if sent is None else (False, True)):
+            runs = [spmv2.spmv_push(sc, x, "sum", "x_mul_val",
+                                    val=sc.val_f32, sent=sent,
+                                    want_got=got) for _ in range(4)]
+            runs.append(spmv2.spmv_push(sc, x, "sum", "x_mul_val",
+                                        val=sc.val_f32, sent=sent,
+                                        want_got=got, recv_csr=rc))
+            k1 = spmv2u.spmv(rc, x, "sum", "x_mul_val", val=rc.val_f32,
+                             sent=sent, want_got=got)
+            torch.cuda.synchronize()
+            for out in runs:
+                if got:
+                    assert torch.equal(out[1], k1[1])
+                    out = out[0]
+                y = k1[0] if got else k1
+                assert torch.equal(out.view(torch.int32),
+                                   y.view(torch.int32))
+
+
+def test_push_mark_kernel_matches_plain(cuda):
+    """The mark pass bitwise its plain version at four frontier shares,
+    one launch each; a sparse sum leaves the rows it marks unreached at
+    the identity with a count of 0, and counts every reached row."""
+    g = _weighted_graph(cuda)
+    sc = g.sender_csr("dst")
+    x = torch.ones(g.n_pad, device=cuda)
+    for sent in _push_frontiers(g, 12):
+        before = spmv2.LAUNCHES["mark"]
+        mark = spmv2.push_mark(sc.rowptr, sc.col, sent, sc.n_send)
+        torch.cuda.synchronize()
+        assert spmv2.LAUNCHES["mark"] == before + 1
+        assert torch.equal(mark, spmv2.push_mark_reference(
+            sc.rowptr, sc.col, sent, sc.n_send, sc.row))
+        y, cnt = spmv2.spmv_push(sc, x, "sum", "x", sent=sent,
+                                 want_got=True)
+        unreached = mark.bool()
+        assert bool((y[unreached] == 0).all())
+        assert bool((cnt[unreached] == 0).all())
+        assert bool((cnt[~unreached] > 0).all())
 
 
 def _tail_hub_pairs(device, L, k):
@@ -864,8 +1003,8 @@ def test_dist_engine_on_cuda_tiles_matches_cpu_tiles(cuda, route, shape,
                                                      monkeypatch):
     """A LocalMesh of card tiles against the same mesh of CPU tiles:
     BFS exactly, 20 PageRank steps within 1e-5 of max(1, |pr|) (the
-    kernels sum in another order, the push by atomics), the kernels
-    launched on the tiles."""
+    kernels sum in another order than the CPU), the kernels launched on
+    the tiles."""
     from graphmat_tpu_torch.apps import bfs as tbfs
     from graphmat_tpu_torch.parallel.dist_graph import DistGraph
     from graphmat_tpu_torch.parallel.mesh import LocalMesh

@@ -25,6 +25,13 @@ def test_import_loads_no_jax():
             "import graphmat_tpu_torch.ops.spmv\n"
             "import graphmat_tpu_torch.io.transforms\n"
             "import graphmat_tpu_torch.utils.generators\n"
+            "import graphmat_tpu_torch.utils.reference_rng\n"
+            "import graphmat_tpu_torch.io.converter\n"
+            "import graphmat_tpu_torch.native\n"
+            "from graphmat_tpu_torch import read_mtx\n"
+            "from graphmat_tpu_torch.utils.reference_rng import "
+            "glibc_square_mapping\n"
+            "glibc_square_mapping(8)\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m == 'jax' or m.startswith(('jax.', 'graphmat_tpu.')))\n"
             "assert not bad, bad\n")
