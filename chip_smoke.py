@@ -14,8 +14,8 @@ delta-stepping) on both kernel routes: K1 with its receiver-finality skip
 (``GRAPHMAT_KERNEL=v2``), then ACTIVE_ONLY K-wide programs on K3's sparse
 mode (K4, with K5's got count fused in), then TriangleCounting (its two
 hot loops, T1 and T2) and GetNeighbors, the 2D-sharded engine, the push's
-sums in K1's fixed order and the converter.  Phases, in order; any
-failure raises and the script exits non-zero:
+sums in K1's fixed order, the converter and the RMAT stream's kernels.
+Phases, in order; any failure raises and the script exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit) and the software;
 2. the kernel build and the host library's (``g++``), timed;
@@ -27,10 +27,12 @@ failure raises and the script exits non-zero:
    with NaN payloads, -0.0 and +-inf;
 4. the golden file: the PageRank CLI on ``data/test.bin.mtx`` against the
    reference binary's output in ``tests/golden/pagerank_test.txt``;
-5. the slice at full size: RMAT scale 22, edge factor 16, seed 1, built
-   and deduplicated on the card, a degree-permuted Graph with compaction
-   on (``compact=True``), ``run_pagerank`` to convergence; the launch
-   counts of both kernels over that run (one K2 launch for each K1
+5. the slice at full size: RMAT scale 22, edge factor 16, seed 1, drawn
+   and deduplicated on the card in the JAX package's stream (the RMAT
+   kernel, counted; the edge count and a hash against RMAT_GOLDEN, taken
+   from the JAX package's ``gm_rmat_gen``), a degree-permuted Graph with
+   compaction on (``compact=True``), ``run_pagerank`` to convergence; the
+   launch counts of both kernels over that run (one K2 launch for each K1
    call); the result against a float64 PageRank computed on the host
    with ``scipy.sparse`` for the same number of iterations;
 6. timings on that graph, from CUDA events: a dense PageRank step on the
@@ -139,7 +141,8 @@ failure raises and the script exits non-zero:
     edge tensors at RMAT-20 and RMAT-22 (bench.py:492-525's protocol, 5
     reps, M edges/s), its torch.profiler breakdown and idle share, peak
     device memory, T1 and T2 alone beside their bounds and plain
-    versions.
+    versions, and ``tc_diagnosis``: the bitmap rows' popcounts, what T1
+    reads an edge, T2's probes and time by class pair.
 
 20. the 2D-sharded engine (``graphmat_tpu_torch.parallel``), its tiles
     on this one card: (a) on RMAT-16 x 16, LocalMeshes of 2x2 and 2x4
@@ -179,9 +182,21 @@ failure raises and the script exits non-zero:
     subprocess, timed); the C id mapping against the numpy one at
     m = 2^16 and the converter's m; ``read_mtx`` onto the card, its
     edges those of the same transform chain in memory; PageRank on the
-    converted graph through K1 and the push against PageRank on the
-    unconverted bidirectional graph mapped through the permutation
-    (1e-5, steps within CONVERT_STEPS, ROADMAP H1's one).
+    converted graph through K1 and the push within CONVERT_RTOL of
+    PageRank on the unconverted bidirectional graph mapped through the
+    permutation; the steps of a float64 PageRank (the port's program,
+    plain PyTorch) on the converted file's edges equal to those on the
+    unconverted graph; the float32 steps of both graphs logged with
+    their last steps' largest change (ROADMAP H1); (c) H1's diagnosis
+    on the graph of ``tests/test_torch_cuda.py::
+    test_pagerank_on_cuda_matches_cpu``: PageRank's steps on the card
+    and on the CPU, their last steps' largest change, the float64
+    steps.
+22. the RMAT stream (``csrc/rmat.cu``): its keys at RMAT-16 and RMAT-20
+    and the weights of the kept keys against their plain versions,
+    exactly; phase 5's edge list (or a new RMAT-22 draw) against
+    RMAT_GOLDEN; the keys kernel timed at RMAT-22 beside its plain
+    version and its bound.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Phase numbers given as arguments run
@@ -422,13 +437,20 @@ def phase_slice(device, scale=22, edge_factor=16, seed=1, graph_kw=None):
     from graphmat_tpu_torch.apps.pagerank import run_pagerank
     from graphmat_tpu_torch.ops import compact, spmv2u
     from graphmat_tpu_torch.utils.generators import rmat_edgelist
+    from graphmat_tpu_torch.ops import rmat
     if torch.device(device).type == "cuda":
         torch.cuda.reset_peak_memory_stats()
+    for k in rmat.LAUNCHES:
+        rmat.LAUNCHES[k] = 0
     t0 = time.perf_counter()
     e = rmat_edgelist(scale, edge_factor, a=0.57, b=0.19, c=0.19,
                       seed=seed, device=device)
     sync(device)
     t_gen = time.perf_counter() - t0
+    krm = dict(rmat.LAUNCHES)
+    if torch.device(device).type == "cuda" and krm["keys"] != 1:
+        raise AssertionError(f"phase 5: the draw launched {krm}")
+    golden = check_rmat_golden(e, scale, edge_factor, seed)
     t0 = time.perf_counter()
     g = Graph(e, device=device, permute="degree",
               **{"compact": True, **(graph_kw or {})})
@@ -485,8 +507,9 @@ def phase_slice(device, scale=22, edge_factor=16, seed=1, graph_kw=None):
         f"{t_gen:.3f}, graph build {t_build:.3f}, run_pagerank "
         f"{t_run:.3f} (degree pass {t_deg:.3f}, PageRank "
         f"{t_run - t_deg:.3f}); oracle {t_oracle:.1f} s on the host; "
-        f"max |err|/max(1,|ref|) {rel:.3e}")
-    return e, g, niter, k1, k2
+        f"max |err|/max(1,|ref|) {rel:.3e}; the draw's launches {krm}, "
+        f"{golden}")
+    return e, g, niter, k1, k2, krm
 
 
 def event_ms(fn, reps, warm=2):
@@ -1850,20 +1873,22 @@ def golden(name):
 
 
 def reset_counts():
-    from graphmat_tpu_torch.ops import compact, spmv2, spmv2u, triangles
+    from graphmat_tpu_torch.ops import compact, rmat, spmv2, spmv2u, triangles
     for d in (spmv2u.LAUNCHES, spmv2.LAUNCHES, compact.LAUNCHES,
-              triangles.LAUNCHES):
+              triangles.LAUNCHES, rmat.LAUNCHES):
         for k in d:
             d[k] = 0
 
 
 def read_counts():
     """The launches since :func:`reset_counts` that are not 0, as
-    ``{"kernel.mode": n}`` (k1, push, k2, and tc: T1 and T2)."""
-    from graphmat_tpu_torch.ops import compact, spmv2, spmv2u, triangles
+    ``{"kernel.mode": n}`` (k1, push, k2, tc: T1 and T2, and rmat: the
+    RMAT stream's keys and weights)."""
+    from graphmat_tpu_torch.ops import compact, rmat, spmv2, spmv2u, triangles
     return {f"{name}.{mode}": n for name, d in (
         ("k1", spmv2u.LAUNCHES), ("push", spmv2.LAUNCHES),
-        ("k2", compact.LAUNCHES), ("tc", triangles.LAUNCHES))
+        ("k2", compact.LAUNCHES), ("tc", triangles.LAUNCHES),
+        ("rmat", rmat.LAUNCHES))
         for mode, n in d.items() if n}
 
 
@@ -2923,7 +2948,8 @@ def phase_tc_kernels(device, scale=16, tail_hub=TAIL_HUB):
     pv, total = tri.count_triangles_bucketed(empty, empty, 1000)
     z = torch.zeros(0, dtype=torch.int32, device=device)
     before = dict(tri.LAUNCHES)
-    tri.core_count(torch.zeros((1, 4), dtype=torch.int32, device=device), z,
+    tri.core_count(torch.zeros((1, 4), dtype=torch.int32, device=device),
+                   torch.zeros((1, 1), dtype=torch.int32, device=device), z,
                    z, z, pv)
     tri.tail_count(z, tri._LADDER, z, z, z, z, pv)
     sync(device)
@@ -3115,6 +3141,97 @@ def tc_profile(fn):
                     for ms, c, k in top[:8]]}
 
 
+def tc_diagnosis(t1, t2, chunk=1 << 16):
+    """Where T1's and T2's time goes on one count's arguments: the
+    bitmap rows' popcounts (mean, quantiles, largest), the edges whose
+    two rows are both real, the popcounts and nonzero words of the two
+    rows over those edges (and the 32-byte sectors of a row that hold the
+    words nonzero in both), the share of those edges whose receiver is
+    one of the 25,000 busiest rows, the edges that share the previous
+    edge's receiver row, T1's bytes an edge (16-byte quads of both rows) and
+    what a two-level read would move (two 16-byte summaries and the
+    words nonzero in both rows, from both); T2's probes and time by
+    class pair, largest first (CUDA events, each pair's probes a slice of
+    the sorted planes)."""
+    import torch
+    from graphmat_tpu_torch.ops import triangles as tri
+    bm, iu, iv = t1[0], t1[-3], t1[-2]
+    rows, w4 = bm.shape
+    zero_row = rows - 1
+    lut = tri._POPCOUNT8.to(bm.device)
+    pop = torch.empty(rows, dtype=torch.int32, device=bm.device)
+    nzw = torch.empty(rows, dtype=torch.int32, device=bm.device)
+    for r0 in range(0, rows, chunk):
+        b = bm[r0:r0 + chunk]
+        pop[r0:r0 + chunk] = lut[b.contiguous().view(torch.uint8).int()].sum(
+            1, dtype=torch.int32)
+        nzw[r0:r0 + chunk] = (b != 0).sum(1, dtype=torch.int32)
+    q = torch.quantile(pop[:-1].double(), torch.tensor(
+        [0.5, 0.9, 0.99], dtype=torch.float64, device=bm.device)).tolist()
+    real = (iu != zero_row) & (iv != zero_row)
+    nreal = int(real.sum())
+    a, b = iu[real].long(), iv[real].long()
+    summ = t1[1]   # T1's summaries: a bit per word, a byte per sector
+    both = torch.zeros(nreal, dtype=torch.int64, device=bm.device)
+    for c0 in range(0, nreal, 1 << 22):
+        x = summ[a[c0:c0 + (1 << 22)]] & summ[b[c0:c0 + (1 << 22)]]
+        both[c0:c0 + (1 << 22)] = lut[x.contiguous().view(
+            torch.uint8).int()].sum(1)
+    # a summary byte covers 8 words, one 32-byte sector of a row
+    sectors = torch.zeros(nreal, dtype=torch.int64, device=bm.device)
+    for c0 in range(0, nreal, 1 << 22):
+        x = summ[a[c0:c0 + (1 << 22)]] & summ[b[c0:c0 + (1 << 22)]]
+        sectors[c0:c0 + (1 << 22)] = (x.contiguous().view(torch.uint8)
+                                      != 0).sum(1)
+    recv = torch.sort(torch.bincount(b, minlength=rows),
+                      descending=True).values
+    recv_top = float(recv[:25_000].sum()) / max(nreal, 1)
+    e = iu.numel()
+    same_recv = float((iv[1:] == iv[:-1]).double().mean()) if e > 1 else 0.0
+    pmin = torch.minimum(pop[a], pop[b]).double()
+    res = {
+        "rows": rows, "words": w4,
+        "row_popcount": {"mean": float(pop[:-1].double().mean()),
+                         "median": q[0], "p90": q[1], "p99": q[2],
+                         "max": int(pop.max())},
+        "edges": e, "both_rows_real_share": nreal / max(e, 1),
+        "over_both_real": {
+            "sender_popcount_mean": float(pop[a].double().mean()),
+            "receiver_popcount_mean": float(pop[b].double().mean()),
+            "min_popcount_mean": float(pmin.mean()),
+            "sender_nonzero_words_mean": float(nzw[a].double().mean()),
+            "words_nonzero_in_both_mean": float(both.double().mean()),
+            "words_nonzero_in_both_max": int(both.max()) if nreal else 0,
+            "sectors_nonzero_in_both_mean": float(sectors.double().mean()),
+            "top_25k_receiver_rows_edge_share": recv_top},
+        "same_receiver_row_as_previous_edge": same_recv,
+        "t1_bytes_an_edge_quads": 12 + nreal / max(e, 1) * 2 * 4 * w4,
+        "t1_bytes_an_edge_two_level": 12 + (
+            nreal * 2 * 16 + int(both.sum()) * 2 * 4) / max(e, 1)}
+    del a, b, both, sectors, recv, pmin, summ, pop, nzw
+    if t2 is not None:
+        gk = t2[2]
+        bounds = torch.cumsum(torch.bincount(gk.long()), 0).tolist()
+        pairs, p0 = [], 0
+        for g, p1 in enumerate(bounds):
+            if p1 > p0:
+                pairs.append((p1 - p0, g, p0, p1))
+            p0 = p1
+        pairs.sort(reverse=True)
+        by_pair = []
+        pv = torch.zeros(int(t2[-1].max()) + 1, dtype=torch.int32,
+                         device=gk.device)
+        for cnt, g, p0, p1 in pairs[:8]:
+            sl = (*t2[:2], *(x[p0:p1] for x in t2[2:]))
+            ms = event_ms(lambda: tri.tail_count(*sl, pv), 3, warm=1)
+            by_pair.append({"pair": [tri._LADDER[g // tri._NC],
+                                     tri._LADDER[g % tri._NC]],
+                            "probes": cnt, "ms": ms})
+        res["t2"] = {"probes": gk.numel(), "pairs": len(pairs),
+                     "by_pair": by_pair}
+    return res
+
+
 def phase_tc_timings(card, scales=(20, 22)):
     """Phase 19 (d): TriangleCounting timed on the card, CUDA events.  At
     each RMAT scale (x 16, seed 1): undirected unique pairs made on the
@@ -3165,16 +3282,20 @@ def phase_tc_timings(card, scales=(20, 22)):
         nacc = n + 1
         pv = torch.zeros(nacc, dtype=torch.int32, device="cuda")
         ref = torch.zeros_like(pv)
-        bm, iu = t1[0], t1[1]
+        bm, sm, iu = t1[0], t1[1], t1[2]
+        planes = 3 * iu.numel() * 4 + nacc * 4
         # each kernel timed, then its plain version once on the same
         # arguments (T2's takes tens of seconds here); the outputs of the
-        # last launch and of the plain run must be equal
+        # last launch and of the plain run must be equal.  T1's bound: the
+        # bytes it may read, each once (the summaries, the bitmap's
+        # nonzero words, three planes); the first design read all of it
         k = {"t1_ms": event_ms(lambda: tri.core_count(*t1, pv.zero_()), 10),
              "t1_plain_ms": event_ms(lambda: tri.core_count_reference(
                  *t1, ref.zero_()), 1, warm=0),
              "t1_max_abs_err": exact_err(f"RMAT-{scale} T1", pv, ref),
-             "t1_bound_ms": hbm_ms(bm.numel() * 4 + 3 * iu.numel() * 4
-                                   + nacc * 4),
+             "t1_bound_ms": hbm_ms(sm.numel() * 4 + int((bm != 0).sum()) * 4
+                                   + planes),
+             "t1_bound_ms_whole_bitmap": hbm_ms(bm.numel() * 4 + planes),
              "bitmap_rows": bm.shape[0], "edges": iu.numel()}
         for t2 in rest:   # T2's arguments, when some edge probes
             mats, gk = t2[0], t2[2]
@@ -3192,7 +3313,8 @@ def phase_tc_timings(card, scales=(20, 22)):
                                  tri._LADDER[g % tri._NC], int(pairs[g])]
                                 for g in top if int(pairs[g])]
             del t2, mats, gk
-        del t1, rest, bm, iu, pv, ref
+        k["diagnosis"] = tc_diagnosis(t1, rest[0] if rest else None)
+        del t1, rest, bm, sm, iu, pv, ref
         res[f"rmat{scale}"] = {
             "m_undirected": u.numel(), "triangles": total,
             "ms": med, "reps_ms": times,
@@ -3693,12 +3815,10 @@ PUSH_SHARES = (1e-4, 1e-2, 0.1)   # phase 21 (a): shares of senders sent
 PUSH_REPEATS = 10                 # launches that must give the same bits
 PUSH_MESH = (2, 4)                # phase 21 (a)'s LocalMesh
 CONVERT_RTOL = 1e-5   # of max(1, |pr|): the converted graph's PageRank
-# against the unconverted one's, the same edges relabelled (K1 then sums a
-# row's terms in another order)
-# the steps to convergence may move near PageRank's threshold with that
-# order, by one (ROADMAP H1); at RMAT-20, seed 1, the H100 read 57 steps
-# converted against 56 unconverted on both routes
-CONVERT_STEPS = 1
+# against the unconverted one's, the same edges relabelled: K1 then sums a
+# row's terms in another order, and the float32 steps to convergence move
+# (ROADMAP H1), so the steps are held equal in float64
+H1_TAIL = 5   # last steps whose largest change H1's diagnoses log
 
 
 def push_bound_bytes(n, senders, pushed_edges, got, mark=False):
@@ -3709,6 +3829,62 @@ def push_bound_bytes(n, senders, pushed_edges, got, mark=False):
         return n + 8 * senders + 4 * pushed_edges + n
     return (n + 12 * senders + 4 * pushed_edges + 4 * n
             + (4 * n if got else 0))
+
+
+def pagerank_f64(src0, dst0, n, alpha=0.3, tol=1e-5, max_iter=1000):
+    """PageRank's run to convergence in float64 with index_add_ on the
+    device of the 0-based int64 edges (plain PyTorch, none of the port):
+    the port's program (start 0.3, a vertex with an in-edge changes
+    while |delta| > ``tol``, a last step that changes none counted).
+    Returns (steps, each step's largest change)."""
+    import torch
+    deg = torch.bincount(src0, minlength=n).double()
+    got = torch.bincount(dst0, minlength=n) > 0
+    pr = torch.full((n,), 0.3, dtype=torch.float64, device=src0.device)
+    big = []
+    for it in range(max_iter):
+        msg = torch.where(deg == 0, 0.0, pr / deg.clamp(min=1))
+        acc = torch.zeros_like(pr).index_add_(0, dst0, msg[src0])
+        new = torch.where(got, alpha + (1 - alpha) * acc, pr)
+        big.append(float((new - pr).abs().max()))
+        pr = new
+        if big[-1] <= tol:
+            return it + 1, big
+    return max_iter, big
+
+
+def pagerank_trace(g):
+    """PageRank on ``g`` to convergence through the engine's current
+    route, each step's largest change kept: (steps, [[step, largest
+    |delta|, the pagerank where it fell, |delta| in float32 ulps of that
+    value]] of the last H1_TAIL steps)."""
+    import torch
+    from graphmat_tpu_torch.apps import pagerank
+    from graphmat_tpu_torch.core.runtime import engine_for
+    rec = []
+
+    class Traced(pagerank.PageRankProgram):
+        def changed(self, old, new):
+            d = (old["pagerank"] - new["pagerank"]).abs()
+            i = d.argmax()
+            rec.append(torch.stack((d[i], new["pagerank"][i])))
+            return super().changed(old, new)
+    pagerank.init_pagerank_graph(g)
+    g.set_all_active()
+    engine_for(pagerank.DegreeProgram(), g).run(iterations=1)
+    steps = engine_for(Traced(), g).run()
+    tail = torch.stack(rec).double().cpu().numpy()[-H1_TAIL:]
+    first = steps - len(tail) + 1
+    return steps, [[first + k, float(d), float(v),
+                    float(d / np.spacing(np.float32(v)))]
+                   for k, (d, v) in enumerate(tail)]
+
+
+def edges0(a, device):
+    """The 0-based int64 (src, dst) of an edge list on ``device``."""
+    import torch
+    return (torch.as_tensor(np.asarray(a.src), device=device).long() - 1,
+            torch.as_tensor(np.asarray(a.dst), device=device).long() - 1)
 
 
 def pagerank_routes(what, g, iterations=None, cuda=True):
@@ -3985,26 +4161,30 @@ def phase_converter(device, card, scale=20, edge_factor=16, seed=1,
     ge = g_conv.get_edges()
 
     def keyed(a):
-        s = torch.as_tensor(np.asarray(a.src), device=device).long() - 1
-        d = torch.as_tensor(np.asarray(a.dst), device=device).long() - 1
-        key, order = torch.sort(s * n + d)
+        sd = edges0(a, device)
+        key, order = torch.sort(sd[0] * n + sd[1])
         return key, torch.as_tensor(np.asarray(a.val), device=device)[order]
     (k1_, v1), (k2_, v2) = keyed(ge), keyed(e_conv)
     if not (torch.equal(k1_, k2_) and torch.equal(v1.long(), v2.long())):
         raise AssertionError("read_mtx's edges differ from the transform "
                              "chain's")
-    # PageRank on the converted graph against the unconverted one
-    g_bi = Graph(e_bi, device=device)
+    del k1_, v1, k2_, v2
+    # PageRank on the converted file's graph against the unconverted
+    # graph: the float32 vector through the permutation, the steps in
+    # float64 (the float32 steps move with each row's sum order, ROADMAP
+    # H1: logged, with the last steps' largest change on each graph)
     conv = pagerank_routes("converted", g_conv, cuda=cuda)
-    unconv = pagerank_routes("unconverted", g_bi, cuda=cuda)
+    trace_c = pagerank_trace(g_conv)
+    del g_conv
+    g_un = Graph(e_bi, device=device)
+    unconv = pagerank_routes("unconverted", g_un, cuda=cuda)
+    trace_u = pagerank_trace(g_un)
+    del g_un
     report["pagerank_iterations"] = {}
     report["pagerank_rel_err"] = {}
     for route in ("v2u", "v2"):
         pr_c, it_c = conv[route]
         pr_u, it_u = unconv[route]
-        if abs(it_c - it_u) > CONVERT_STEPS:
-            raise AssertionError(f"converted PageRank ({route}): {it_c} "
-                                 f"steps, unconverted {it_u}")
         rel = rel_err(pr_c[perm - 1], pr_u)
         if not np.isfinite(pr_c).all() or rel > CONVERT_RTOL:
             raise AssertionError(f"converted PageRank ({route}): off the "
@@ -4012,10 +4192,137 @@ def phase_converter(device, card, scale=20, edge_factor=16, seed=1,
         report["pagerank_iterations"][route] = {"converted": it_c,
                                                 "unconverted": it_u}
         report["pagerank_rel_err"][route] = rel
+    f64 = {"converted": pagerank_f64(*edges0(ge, device), n),
+           "unconverted": pagerank_f64(*edges0(e_bi, device), n)}
+    report["pagerank_f64"] = {k: {"steps": it, "last_largest_changes":
+                                  big[-3:]} for k, (it, big) in f64.items()}
+    if f64["converted"][0] != f64["unconverted"][0]:
+        raise AssertionError(
+            f"float64 PageRank: {f64['converted'][0]} steps on the "
+            f"converted graph, {f64['unconverted'][0]} on the unconverted")
+    report["pagerank_last_steps"] = {"converted": trace_c,
+                                     "unconverted": trace_u}
     check_push_pagerank("converted graph", conv)
     report["seconds"] = time.perf_counter() - t_start
     log("phase 21 (b): " + json.dumps(report))
     return report
+
+
+def phase_h1_steps(device, card):
+    """Phase 21 (c): H1's diagnosis on the graph of ``tests/
+    test_torch_cuda.py::test_pagerank_on_cuda_matches_cpu`` (RMAT-11 x
+    16, seed 4, degree-permuted, compacted and not): PageRank's steps on
+    ``device`` and on the CPU, with the last steps' largest change, and
+    the steps in float64.  It checks nothing (the test does)."""
+    from graphmat_tpu_torch import Graph
+    from graphmat_tpu_torch.utils.generators import rmat_edgelist
+    e = rmat_edgelist(11, 16, seed=4, device="cpu")
+    steps, big = pagerank_f64(*edges0(e, "cpu"), e.n)
+    report = {"card": card, "f64": {"steps": steps,
+                                    "last_largest_changes": big[-3:]}}
+    for compacted in (False, True):
+        kw = dict(permute="degree", compact=compacted,
+                  compact_kw=dict(wr=256, hub=16, divert_min=40, bpsb=2,
+                                  w_div=1) if compacted else None)
+        report[f"compacted={compacted}"] = {
+            dev: pagerank_trace(Graph(e, device=dev, **kw))
+            for dev in (device, "cpu")}
+    log("phase 21 (c): " + json.dumps(report))
+    return report
+
+
+# ----------------------------------------------------- the RMAT stream
+
+# (scale, edge factor, seed) -> (edges, hash) of the deduplicated draw,
+# the hash sum(src * (n + 1) + dst) mod 2^61 over the 1-based ids: taken
+# on the host from the JAX package's gm_rmat_gen
+# (graphmat_tpu/native/planner.cpp:1627) through
+# graphmat_tpu.utils.generators.rmat_edgelist(22, 16, seed=1,
+# native=True), the graph bench.py draws
+RMAT_GOLDEN = {(22, 16, 1): (65_243_295, 263_620_767_749_746_564)}
+RMAT_SCALES = (16, 20)   # phase 22's kernel checks
+RMAT_WEIGHTS = 255       # the weight range those checks draw
+
+
+def rmat_hash(e):
+    """sum(src * (n + 1) + dst) mod 2^61 of an edge list on its device
+    (int64 sums wrap mod 2^64, which 2^61 divides)."""
+    import torch
+    src = torch.as_tensor(e.src).long()
+    dst = torch.as_tensor(e.dst).long()
+    return int((src * (e.n + 1) + dst).sum()) % (1 << 61)
+
+
+def check_rmat_golden(e, scale, edge_factor, seed):
+    """The draw against gm_rmat_gen's edge count and hash, where
+    RMAT_GOLDEN holds them; a note for the log."""
+    want = RMAT_GOLDEN.get((scale, edge_factor, seed))
+    if want is None:
+        return "no golden for this draw"
+    got = (e.nnz, rmat_hash(e))
+    if got != want:
+        raise AssertionError(f"RMAT-{scale} x{edge_factor} seed {seed}: "
+                             f"(edges, hash) {got}, gm_rmat_gen's {want}")
+    return f"edges and hash equal gm_rmat_gen's {want}"
+
+
+def phase_rmat(device, card, e=None, scales=RMAT_SCALES, time_scale=22,
+               edge_factor=16, seed=1):
+    """Phase 22: the RMAT stream's kernels (``csrc/rmat.cu``) against
+    their plain versions, exactly: the keys of RMAT-``scale`` x 16 for
+    each of ``scales`` and the weights (range RMAT_WEIGHTS) of its kept
+    keys; then, on the card, RMAT-``time_scale``'s edge list (phase 5's
+    ``e``, or a new draw) against its golden count and hash, and the
+    keys kernel timed there beside its plain version and its bound (8 B
+    a key written at 3.35 TB/s), the last timed call of each compared
+    exactly."""
+    import torch
+    from graphmat_tpu_torch.ops import rmat
+    from graphmat_tpu_torch.utils.generators import rmat_edgelist
+    cuda = torch.device(device).type == "cuda"
+    res = {"card": card}
+    for scale in scales:
+        nnz = (1 << scale) * edge_factor
+        args = (scale, nnz, 0.57, 0.19, 0.19, seed)
+        keys = rmat.rmat_keys(*args, device)
+        sync(device)
+        ref = rmat.rmat_keys_reference(*args, device)
+        kerr = exact_err(f"RMAT-{scale} keys", keys, ref)
+        kept = torch.unique(keys)
+        val = rmat.rmat_weights(kept, seed, RMAT_WEIGHTS)
+        sync(device)
+        verr = exact_err(f"RMAT-{scale} weights", val,
+                         rmat.rmat_weights_reference(kept, seed,
+                                                     RMAT_WEIGHTS))
+        res[f"rmat{scale}"] = {"keys": nnz, "distinct": kept.numel(),
+                               "max_abs_err": max(kerr, verr)}
+        del keys, ref, kept, val
+    if cuda:
+        if e is None:
+            e = rmat_edgelist(time_scale, edge_factor, seed=seed,
+                              device=device)
+        res["golden"] = check_rmat_golden(e, time_scale, edge_factor, seed)
+        del e
+        nnz = (1 << time_scale) * edge_factor
+        args = (time_scale, nnz, 0.57, 0.19, 0.19, seed)
+        out = {}   # the last timed call's keys of each, compared below
+
+        def kernel():
+            out["kernel"] = rmat.rmat_keys(*args, device)
+
+        def plain():
+            out["plain"] = rmat.rmat_keys_reference(*args, device)
+        res["timed"] = {
+            "scale": time_scale, "keys": nnz, "ms": event_ms(kernel, 10),
+            "plain_ms": event_ms(plain, 1, warm=1),
+            "bound_ms": hbm_ms(8 * nnz),
+            "max_abs_err": exact_err(f"RMAT-{time_scale} keys",
+                                     out["kernel"], out["plain"])}
+        del out
+        torch.cuda.empty_cache()
+    log("phase 22: the RMAT kernels equal their plain versions: "
+        + json.dumps(res))
+    return res
 
 
 def kernel_record(name, source, replaces, launches, err, ms, plain_ms,
@@ -4069,7 +4376,7 @@ def main(argv=None):
     if want(4):
         phase_golden("cuda")
     if want(5):
-        e, g, niter, k1, k2 = phase_slice("cuda")
+        e, g, niter, k1, k2, krm = phase_slice("cuda")
     if want(6):
         t, k1_err_slice = phase_timings(e, g, card)
         k1_err = max(k1_err, k1_err_slice)
@@ -4137,10 +4444,11 @@ def main(argv=None):
     if want(21):
         p21 = phase_push_sums("cuda", card, e=e_slice)
         k1_err = max(k1_err, p21["max_abs_err"])   # a push sum is K1's
-        del e_slice
         phase_converter("cuda", card)
-    else:
-        del e_slice
+        phase_h1_steps("cuda", card)
+    if want(22):
+        p22 = phase_rmat("cuda", card, e=e_slice)
+    del e_slice
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     if only:
         return
@@ -4234,6 +4542,17 @@ def main(argv=None):
             t6["rmat22"]["kernels"]["t2_plain_ms"],
             t6["rmat22"]["kernels"]["t2_bound_ms"], "bytes", None),
     ]}
+    # the RMAT stream's keys at RMAT-22 (phase 22), launched by phase 5's
+    # draw; no PyTorch call computes splitmix64
+    rt = p22["timed"]
+    kernels["kernels"].append(kernel_record(
+        "rmat", "graphmat_tpu_torch/csrc/rmat.cu",
+        "graphmat_tpu/native/planner.cpp:1627 (gm_rmat_gen, C++/OpenMP; "
+        "no Pallas kernel)", sum(krm.values()),
+        max(r["max_abs_err"] for r in p22.values()
+            if isinstance(r, dict) and "max_abs_err" in r),
+        rt["ms"], rt["plain_ms"],
+        rt["bound_ms"], "bytes", None))
     idle = [r["name"] for r in kernels["kernels"] if r["launches"] == 0]
     if idle:
         raise AssertionError(f"the main path launched no {idle}")

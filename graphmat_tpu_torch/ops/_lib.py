@@ -24,7 +24,7 @@ __all__ = ["build", "load", "check"]
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 SOURCES = ("spmv2u.cu", "compact.cu", "spmv_vec2.cu", "spmv2.cu",
-           "triangles.cu")
+           "triangles.cu", "rmat.cu")
 BUILD_DIR = _PKG.parent / "build" / "graphmat_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -116,11 +116,16 @@ def load() -> ctypes.CDLL:
                                  f, f, p]
     lib.gm_spmv_vec2.restype = i
     ll = ctypes.c_longlong
-    lib.gm_tc_core_count.argtypes = [p, i, i, p, p, p, ll, p, p]
+    lib.gm_tc_core_count.argtypes = [p, i, p, i, i, p, p, p, ll, p, p]
     lib.gm_tc_core_count.restype = i
-    lib.gm_tc_tail_count.argtypes = [p, ctypes.POINTER(i), i, p, p, p, p,
-                                     ll, p, p]
+    lib.gm_tc_tail_count.argtypes = [p, ctypes.POINTER(i), i, i, p, p, p,
+                                     p, ll, p, p]
     lib.gm_tc_tail_count.restype = i
+    d, ull = ctypes.c_double, ctypes.c_ulonglong
+    lib.gm_rmat_keys.argtypes = [i, ll, d, d, d, ull, p, p]
+    lib.gm_rmat_keys.restype = i
+    lib.gm_rmat_weights.argtypes = [p, ll, ull, i, p, p]
+    lib.gm_rmat_weights.restype = i
     lib.gm_error_string.argtypes = [i]
     lib.gm_error_string.restype = ctypes.c_char_p
     return lib

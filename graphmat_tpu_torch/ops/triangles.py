@@ -13,11 +13,20 @@ neighbour matrix):
   intersection lives in core-rank space: each vertex's core
   out-neighbourhood is an ``h``-bit row of a bitmap (rows only for the
   vertices that have one, and a last row of zeros), and every edge counts
-  |N+(u) ∩ N+(v) ∩ C| by AND and popcount of two rows.
+  |N+(u) ∩ N+(v) ∩ C| by AND and popcount of two rows.  A second level
+  beside the bitmap, a summary row of a bit per bitmap word (set where
+  the word is not 0), lets T1 read only the words that are nonzero in
+  both rows: the sender's row is a random one of millions, and at
+  h = 4096 the two rows share a few dozen nonzero words of 128.
 * **Tail lists (part 2, T2).**  Out-neighbours below the core form short
-  per-sender lists, padded to the width of a class of a ladder of powers
-  of two; |N+(u) ∩ N+(v) ∩ T| runs over the edges whose two ends both
-  have a tail list (the probes), grouped by class pair.
+  per-sender lists, sorted and padded to the width of a class of a
+  ladder of powers of two; |N+(u) ∩ N+(v) ∩ T| runs over the edges whose
+  two ends both have a tail list (the probes), grouped by class pair.
+  T2 gives a probe 8 lanes when both its lists are of width 64 or more
+  and 4 otherwise (the preps list the narrow pairs' probes first, and a
+  warp finds where the wide ones start), copies the wider list (up to 256 ids) into shared memory when
+  the narrower one is wide enough to pay for it, and looks the narrower
+  list's ids up by bisection, four in step a lane.
 
 Two preps, as in the JAX package:
 
@@ -25,12 +34,13 @@ Two preps, as in the JAX package:
   device in plain PyTorch, where XLA stands in the JAX package: dedup,
   ranks, orientation, tallies and a stats vector (:func:`_tc_stats`); one
   small host read of that vector fixes the sizes (:func:`_group_cfg`);
-  then the bitmap, part 1, the tail lists and part 2
+  then the bitmap and its summaries, part 1, the tail lists and part 2
   (:func:`_kernel_args`).  Self loops and duplicates become edges of
   sender ``n`` that count 0; nothing is compacted.
 * ``impl="host"``: the numpy prep (:func:`_tc_prep_numpy`, :func:`_prep`)
-  packs the bitmap and the lists on the host and the same two kernels
-  count on the device.  It is the independent oracle of the device prep.
+  packs the bitmap (and :func:`_tc_summary_host` its summaries) and the
+  lists on the host and the same two kernels count on the device.  It is
+  the independent oracle of the device prep.
   The JAX package prefers a native C++ prep there (``_tc_prep_native``,
   ``planner.cpp``); the port has no loader for it yet, so the numpy prep,
   which gives the same outputs, always runs.
@@ -62,14 +72,18 @@ from . import _lib
 from .neighbors import PAD_ID
 
 __all__ = ["count_triangles_bucketed", "core_count", "tail_count",
-           "core_count_reference", "tail_count_reference", "LAUNCHES",
-           "CORE_H"]
+           "core_count_reference", "tail_count_reference",
+           "LAUNCHES", "CORE_H"]
 
 CORE_H = 4096        # core size: a bitmap row is CORE_H / 32 words
 _PART1_B = 1 << 18   # edges per chunk of T1's plain version
 _NC = 21
 _LADDER = tuple(8 << i for i in range(_NC))   # 8 .. 2^23
 _SLAB = 1 << 24      # compares per slab of T2's plain version
+# T2 runs a probe with 8 lanes when both its lists are of a class this
+# wide or wider, else with 4; the preps hand it the narrow pairs' probes
+# first
+_TAIL_WIDE_FROM = 64
 
 # launches of the two kernels; only core_count and tail_count add to it
 LAUNCHES = {"core_count": 0, "tail_count": 0}
@@ -89,16 +103,29 @@ def _round4(w: int) -> int:
 
 # ------------------------------------------------------------------ T1
 
-def core_count_reference(bm, iu, iv, s, pv):
-    """Plain version of T1: ``pv[s[e]] += popcount(bm[iu[e]] &
-    bm[iv[e]])`` over every edge, in chunks of 2^18 edges (the whole
-    gather would take 2 x E x W x 4 bytes).  Returns ``pv``."""
+def _summary_words(w4: int) -> int:
+    """The words of a summary row over ``w4`` bitmap words: a bit each."""
+    return -(-w4 // 32)
+
+
+def core_count_reference(bm, sm, iu, iv, s, pv):
+    """Plain version of T1: ``pv[s[e]] += Σ_j [bit j of sm[iu[e]] &
+    sm[iv[e]]] · popcount(bm[iu[e], j] & bm[iv[e], j])`` over every edge,
+    in chunks of 2^18 edges (the whole gather would take 2 x E x W x 4
+    bytes).  With summaries that mark the nonzero words, that is the
+    popcount of the two rows' AND.  Returns ``pv``."""
     lut = _POPCOUNT8.to(bm.device)
+    w4 = bm.shape[1]
+    j = torch.arange(w4, device=bm.device)
     for c0 in range(0, iu.numel(), _PART1_B):
-        c1 = c0 + _PART1_B
-        x = bm[iu[c0:c1].long()] & bm[iv[c0:c1].long()]
-        cnt = lut[x.view(torch.uint8).int()].sum(1, dtype=torch.int32)
-        pv.index_add_(0, s[c0:c1].long(), cnt)
+        a, b = iu[c0:c0 + _PART1_B].long(), iv[c0:c0 + _PART1_B].long()
+        x = bm[a] & bm[b]
+        words = lut[x.view(torch.uint8).int()].view(a.numel(), w4, 4).sum(
+            2, dtype=torch.int32)
+        both = (sm[a] & sm[b])[:, j >> 5]
+        words = words * ((both >> (j & 31)) & 1)
+        pv.index_add_(0, s[c0:c0 + _PART1_B].long(), words.sum(
+            1, dtype=torch.int32))
     return pv
 
 
@@ -113,35 +140,41 @@ def _check_int32(what, *ts):
             raise ValueError(f"{what}'s tensors must share one device")
 
 
-def core_count(bm, iu, iv, s, pv):
-    """T1, the core count: ``pv[s[e]] += Σ_w popc(bm[iu[e], w] &
-    bm[iv[e], w])`` for every edge ``e``.
+def core_count(bm, sm, iu, iv, s, pv):
+    """T1, the core count: ``pv[s[e]] += Σ_j popc(bm[iu[e], j] &
+    bm[iv[e], j])`` over the words ``j`` whose bit is set in both rows'
+    summaries, for every edge ``e``.
 
     ``bm`` is the int32 bitmap ``[rows, W4]`` (read as uint32; ``W4`` a
     multiple of 4, padded with zero words; the last row all zeros and
-    every edge without a row pointing at it); ``iu``, ``iv`` and ``s`` are
-    int32 ``[E]``, ``pv`` int32, added to in place and returned.  The
-    indices must lie inside ``bm`` and ``pv`` (the prep guarantees it; it
-    is not checked per call).  A CUDA tensor launches the kernel, a CPU
-    tensor runs :func:`core_count_reference`."""
-    _check_int32("core_count", bm, iu, iv, s, pv)
+    every edge without a row pointing at it); ``sm`` its int32 summaries
+    ``[rows, ceil(W4 / 32)]``, bit ``j`` of a row set where word ``j`` of
+    its bitmap row is not 0 (:func:`_tc_summary`); ``iu``, ``iv`` and
+    ``s`` are int32 ``[E]``, ``pv`` int32, added to in place and
+    returned.  The indices must lie inside ``bm`` and ``pv`` (the prep
+    guarantees it; it is not checked per call).  A CUDA tensor launches
+    the kernel, a CPU tensor runs :func:`core_count_reference`."""
+    _check_int32("core_count", bm, sm, iu, iv, s, pv)
     if bm.dim() != 2 or bm.shape[1] % 4 or bm.shape[0] < 1:
         raise ValueError(f"core_count: bm must be [rows >= 1, W4] with W4 a "
                          f"multiple of 4, not {tuple(bm.shape)}")
+    if tuple(sm.shape) != (bm.shape[0], _summary_words(bm.shape[1])):
+        raise ValueError(f"core_count: sm must be [rows, ceil(W4 / 32)] = "
+                         f"{(bm.shape[0], _summary_words(bm.shape[1]))}, not "
+                         f"{tuple(sm.shape)}")
     if not iu.shape == iv.shape == s.shape or iu.dim() != 1:
         raise ValueError("core_count: iu, iv and s must be 1-D of one length")
     if bm.device.type == "cpu":
-        return core_count_reference(bm, iu, iv, s, pv)
+        return core_count_reference(bm, sm, iu, iv, s, pv)
     if bm.device.type != "cuda":
         raise RuntimeError(f"core_count has no kernel for {bm.device}")
-    if bm.data_ptr() % 16:
-        raise ValueError("core_count: bm must start on a 16-byte boundary")
     if iu.numel() == 0 or bm.shape[1] == 0:   # no edge, or no core (h = 0)
         return pv
     lib = _lib.load()
     rc = lib.gm_tc_core_count(
-        bm.data_ptr(), bm.shape[1] // 4, bm.shape[0] - 1, iu.data_ptr(),
-        iv.data_ptr(), s.data_ptr(), iu.numel(), pv.data_ptr(),
+        bm.data_ptr(), bm.shape[1], sm.data_ptr(), sm.shape[1],
+        bm.shape[0] - 1, iu.data_ptr(), iv.data_ptr(), s.data_ptr(),
+        iu.numel(), pv.data_ptr(),
         torch.cuda.current_stream(bm.device).cuda_stream)
     _lib.check(lib, rc, "core_count")
     LAUNCHES["core_count"] += 1
@@ -210,8 +243,9 @@ def tail_count(mats, ladder, gk, fa, fb, sp, pv):
     lib = _lib.load()
     lad = (ctypes.c_int * len(ladder))(*ladder)
     rc = lib.gm_tc_tail_count(
-        mats.data_ptr(), lad, len(ladder), gk.data_ptr(), fa.data_ptr(),
-        fb.data_ptr(), sp.data_ptr(), gk.numel(), pv.data_ptr(),
+        mats.data_ptr(), lad, len(ladder), _TAIL_WIDE_FROM, gk.data_ptr(),
+        fa.data_ptr(), fb.data_ptr(), sp.data_ptr(), gk.numel(),
+        pv.data_ptr(),
         torch.cuda.current_stream(mats.device).cuda_stream)
     _lib.check(lib, rc, "tail_count")
     LAUNCHES["tail_count"] += 1
@@ -323,6 +357,22 @@ def _prep(src0, dst0, n, h=None, assume_canonical=False):
                 s=d["s_all"], ladder=ladder, mats=mats, groups=groups)
 
 
+def _tail_order(ladder, cs, cr):
+    """The place of class pair ``(cs, cr)``'s probes among T2's: the
+    narrow pairs' before the wide pairs', each by ``cs * len(ladder) +
+    cr``."""
+    n = len(ladder)
+    wide = min(ladder[cs], ladder[cr]) >= _TAIL_WIDE_FROM
+    return (n * n if wide else 0) + cs * n + cr
+
+
+# the device prep's sort key of a probe's ``gkey`` (no probe, ``_NC *
+# _NC``, last)
+_TAIL_RANK = torch.tensor([_tail_order(_LADDER, g // _NC, g % _NC)
+                           for g in range(_NC * _NC)] + [2 * _NC * _NC],
+                          dtype=torch.int32)
+
+
 def _count_host(host, nacc, device):
     """The host route's count on ``device``: T1 over every edge, T2 over
     the probes of every class pair; int32 ``[nacc]``."""
@@ -334,8 +384,8 @@ def _count_host(host, nacc, device):
     bmp = np.zeros((bm.shape[0], W4), np.uint32)
     bmp[:, :bm.shape[1]] = bm
     pv = torch.zeros(nacc, dtype=torch.int32, device=device)
-    core_count(up(bmp.view(np.int32)), up(host["iu"]), up(host["iv"]),
-               up(host["s"]), pv)
+    core_count(up(bmp.view(np.int32)), up(_tc_summary_host(bmp)),
+               up(host["iu"]), up(host["iv"]), up(host["s"]), pv)
     if host["groups"]:
         ladder, mats = host["ladder"], host["mats"]
         sizes = [m.size for m in mats]
@@ -344,7 +394,9 @@ def _count_host(host, nacc, device):
             raise ValueError("tail lists past 2^31 entries")
         L = len(ladder)
         gk, fa, fb, sp = [], [], [], []
-        for cs, cr, snd, ru, rv in host["groups"]:
+        for cs, cr, snd, ru, rv in sorted(
+                host["groups"],
+                key=lambda g: _tail_order(ladder, g[0], g[1])):
             gk.append(np.full(len(snd), cs * L + cr))
             fa.append(base[cs] + ru * ladder[cs])
             fb.append(base[cr] + rv * ladder[cr])
@@ -458,11 +510,39 @@ def _group_cfg(stats):
             int(stats[1 + _NC:1 + _NC + _NC * _NC].sum()))
 
 
+def _pack_summary(nz):
+    """T1's summaries from a 0/1 uint8 ``[rows, W4]`` of the bitmap's
+    nonzero words: int32 ``[rows, ceil(W4 / 32)]``, bit ``j`` of a row
+    for word ``j`` (8 words a byte, little-endian)."""
+    rows, w4 = nz.shape
+    sw = _summary_words(w4)
+    if sw == 0:   # no core (h = 0)
+        return torch.zeros((rows, 0), dtype=torch.int32, device=nz.device)
+    if sw * 32 != w4:
+        nz = torch.nn.functional.pad(nz, (0, sw * 32 - w4))
+    pow2 = torch.tensor([1 << i for i in range(8)], dtype=torch.uint8,
+                        device=nz.device)
+    packed = (nz.reshape(rows, sw * 4, 8) * pow2).sum(-1, dtype=torch.uint8)
+    return packed.contiguous().view(torch.int32)
+
+
+def _tc_summary_host(bm):
+    """The host prep's T1 summaries of a uint32 bitmap ``[rows, W4]``."""
+    rows, w4 = bm.shape
+    packed = np.zeros((rows, _summary_words(w4) * 4), np.uint8)
+    if w4:
+        bits = np.packbits(bm != 0, axis=1, bitorder="little")
+        packed[:, :bits.shape[1]] = bits
+    return packed.view(np.int32)
+
+
 def _tc_bitmap(s, rk_r, iu, n, h, ncr):
     """The core bitmap, int32 ``[ncr + 1, W4]``: a bit per core rank, its
     words built by adding distinct powers of two (bit 31 is INT_MIN and
     nothing carries; T1 reads them as uint32), ``W`` padded to ``W4``, a
-    multiple of 4, with zero words, and a last row of zeros."""
+    multiple of 4, with zero words, and a last row of zeros; and its
+    summaries (:func:`_pack_summary`), marked from the same core edges'
+    words.  Returns ``(bm, sm)``."""
     h_eff = min(h, n)
     core_lo = n - h_eff
     W4 = _round4((h_eff + 31) // 32)
@@ -476,14 +556,18 @@ def _tc_bitmap(s, rk_r, iu, n, h, ncr):
     bitv = (bitv - ((bitv >> 31) << 32)).to(torch.int32)  # 2^31: INT_MIN
     bm = torch.zeros((ncr + 1) * W4, dtype=torch.int32, device=s.device)
     bm.index_add_(0, word, bitv)
-    return bm.view(ncr + 1, W4)
+    del bitv
+    nz = torch.zeros((ncr + 1) * W4, dtype=torch.uint8, device=s.device)
+    nz[word] = 1
+    return bm.view(ncr + 1, W4), _pack_summary(nz.view(ncr + 1, W4))
 
 
 def _tc_tails(s, r, rk_r, gkey, frs, frr, n, h, mats_size, nprobe):
     """The tail lists and the probes, T2's arguments ``(mats, gk, fa, fb,
     sp)``: a sort on (flat row, receiver) packs each sender's tail list
     ascending at its flat row of ``mats`` (the rest of the row pads), and
-    a stable sort on the class pair lists the probes first, by pair."""
+    a stable sort on the class pair lists the probes first, by pair, the
+    narrow pairs' before the wide pairs' (:func:`_tail_order`)."""
     if mats_size >= 2 ** 31:
         raise ValueError("tail lists past 2^31 entries")
     dev = s.device
@@ -507,14 +591,15 @@ def _tc_tails(s, r, rk_r, gkey, frs, frr, n, h, mats_size, nprobe):
     mats[midx] = r_s   # the entries past the lists land on the spare
     mats[mats_size] = PAD_ID
     del midx, r_s, valid
-    idx = torch.sort(gkey, stable=True).indices[:nprobe]
+    idx = torch.sort(_TAIL_RANK.to(dev)[gkey.long()],
+                     stable=True).indices[:nprobe]
     return mats, gkey[idx], frs[idx], frr[idx], s[idx]
 
 
 def _kernel_args(u, v, n, h=None, canonical=False):
     """The device prep (``graphmat_tpu/ops/triangles.py:300-511``) of the
     int64 edges ``u``, ``v`` (core size ``h``, default CORE_H): yields
-    T1's arguments ``(bm, iu, iv, s)``, then, when some edge probes, T2's
+    T1's arguments ``(bm, sm, iu, iv, s)``, then, when some edge probes, T2's
     ``(mats, ladder, gk, fa, fb, sp)``.  A generator, so that the bitmap
     can go before the tail lists are built; the count and the card's
     checks of the kernels both run on it."""
@@ -522,7 +607,7 @@ def _kernel_args(u, v, n, h=None, canonical=False):
     s, r, rk_r, iu, iv, gkey, frs, frr, stats = _tc_stats(u, v, n, h,
                                                           canonical)
     ncr, mats_size, nprobe = _group_cfg(stats)
-    yield _tc_bitmap(s, rk_r, iu, n, h, ncr), iu, iv, s
+    yield *_tc_bitmap(s, rk_r, iu, n, h, ncr), iu, iv, s
     if nprobe:
         mats, *probes = _tc_tails(s, r, rk_r, gkey, frs, frr, n, h,
                                   mats_size, nprobe)

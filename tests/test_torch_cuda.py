@@ -20,7 +20,7 @@ push's sums are K1's over the receiver CSR: bitwise K1's and the same
 over repeated launches.  T1 and T2
 (TriangleCounting's core and tail counts) equal their plain versions
 exactly, and TriangleCounting and GetNeighbors on the card their CPU
-runs.
+runs.  The RMAT stream's kernels equal their plain versions bit for bit.
 """
 
 import functools
@@ -901,6 +901,32 @@ def test_push_mark_kernel_matches_plain(cuda):
         assert bool((cnt[~unreached] > 0).all())
 
 
+@pytest.mark.parametrize("scale,weight_range", [(10, 0), (14, 255),
+                                                (16, 5)])
+def test_rmat_kernels_match_plain(cuda, scale, weight_range):
+    """The RMAT keys and weights kernels bitwise their plain versions, one
+    launch each; the edge list drawn on the card that drawn on the CPU."""
+    from graphmat_tpu_torch.ops import rmat
+    nnz = (1 << scale) * 16
+    args = (scale, nnz, 0.57, 0.19, 0.19, 2 ** 40 + 3)
+    before = dict(rmat.LAUNCHES)
+    keys = rmat.rmat_keys(*args, cuda)
+    torch.cuda.synchronize()
+    assert rmat.LAUNCHES["keys"] == before["keys"] + 1
+    assert torch.equal(keys.cpu(), rmat.rmat_keys_reference(*args))
+    val = rmat.rmat_weights(keys, 7, 1000)
+    torch.cuda.synchronize()
+    assert rmat.LAUNCHES["weights"] == before["weights"] + 1
+    assert torch.equal(val.cpu(), rmat.rmat_weights_reference(
+        keys.cpu(), 7, 1000))
+    for dedup in (True, False):
+        kw = dict(seed=3, dedup=dedup, weight_range=weight_range)
+        got = rmat_edgelist(scale, 16, device=cuda, **kw)
+        want = rmat_edgelist(scale, 16, device="cpu", **kw)
+        for a, b in zip(got.astuple(), want.astuple()):
+            assert torch.equal(a.cpu(), b)
+
+
 def _tail_hub_pairs(device, L, k):
     """K_{Y,Z} (L + L vertices) and a k-clique S joined to all of Y: at
     h = 64 each sender's tail list holds about L ids."""
@@ -963,6 +989,85 @@ def test_triangle_kernels_match_plain(cuda, case):
     assert total == total_h and torch.equal(pv, pv_h)
     if case == "tail_hub":
         assert total == 15 * 2100 + 20
+
+
+def _summary(bm):
+    from graphmat_tpu_torch.ops.triangles import _tc_summary_host
+    return torch.as_tensor(_tc_summary_host(bm))
+
+
+@pytest.mark.parametrize("w4", [4, 36, 128])
+def test_core_count_kernel_two_level_matches_plain(cuda, w4):
+    """T1 on crafted rows (empty, sparse, a hub row of all ones, the
+    row's last word only) with true summaries, all-zero summaries and
+    summaries that mark some nonzero words only, exactly its plain
+    version."""
+    rng = np.random.default_rng(w4)
+    rows, e = 300, 50_000
+    bm = np.zeros((rows, w4), np.uint32)
+    for r in range(rows - 1):
+        bits = rng.choice(32 * w4, int(rng.integers(0, 40)), replace=False)
+        np.bitwise_or.at(bm[r], bits >> 5,
+                         np.uint32(1) << (bits & 31).astype(np.uint32))
+    bm[3] = 0xFFFFFFFF
+    bm[4, -1] = np.uint32(1 << 31)
+    iu = torch.as_tensor(rng.integers(0, rows, e).astype(np.int32))
+    iv = torch.as_tensor(rng.integers(0, rows, e).astype(np.int32))
+    s = torch.as_tensor(rng.integers(0, 1000, e).astype(np.int32))
+    sm = _summary(bm)
+    bmt = torch.as_tensor(bm.view(np.int32))
+    for sums in (sm, torch.zeros_like(sm),
+                 sm & torch.as_tensor(rng.integers(0, 2 ** 31, sm.shape,
+                                                   dtype=np.int32))):
+        want = triangles.core_count_reference(
+            bmt, sums, iu, iv, s, torch.zeros(1000, dtype=torch.int32))
+        got = triangles.core_count(*(x.to(cuda) for x in (bmt, sums, iu, iv,
+                                                         s)),
+                                   torch.zeros(1000, dtype=torch.int32,
+                                               device=cuda))
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("order", ["pair", "narrow_first", "shuffled"])
+@pytest.mark.parametrize("ladder", [(1, 2, 8, 16), (8, 64, 256, 512, 4096)])
+def test_tail_count_kernel_on_edge_lists_matches_plain(cuda, ladder, order):
+    """T2 on lists at full class width, empty lists, hub lists wider than
+    the staged cap, runs of probes on one list and widths that are not
+    multiples of 4, exactly its plain version; with the probes by class
+    pair, narrow pairs first (as the preps give them: 4 lanes a probe,
+    then 8) and shuffled (the kernel's split falls anywhere)."""
+    rng = np.random.default_rng(len(ladder))
+    L = len(ladder)
+    flat, starts, cls, off = [], [], [], 0
+    for i in range(200):
+        c = i % L
+        k = (ladder[c] if i % 3 == 0 else 0 if i % 7 == 1
+             else int(rng.integers(1, ladder[c] + 1)))
+        row = np.full(ladder[c], 2 ** 31 - 1, np.int32)
+        row[:k] = np.sort(rng.choice(3 * ladder[-1], k, replace=False))
+        flat.append(row)
+        starts.append(off)
+        off += ladder[c]
+        cls.append(c)
+    cls, starts = np.asarray(cls), np.asarray(starts, np.int32)
+    a = rng.integers(0, 200, 20_000)
+    b = np.repeat(rng.integers(0, 200, 2_000), 10)
+    gk = cls[a] * L + cls[b]
+    key = {"pair": gk, "shuffled": rng.permutation(gk.size),
+           "narrow_first": [triangles._tail_order(ladder, cs, cr)
+                            for cs, cr in zip(cls[a], cls[b])]}[order]
+    order = np.argsort(key, kind="stable")
+    args = [torch.as_tensor(np.concatenate(flat)), ladder] + [
+        torch.as_tensor(x[order].astype(np.int32)) for x in
+        (gk, starts[a], starts[b], rng.integers(0, 500, 20_000))]
+    want = triangles.tail_count_reference(
+        *args, torch.zeros(500, dtype=torch.int32))
+    got = triangles.tail_count(
+        *(x.to(cuda) if torch.is_tensor(x) else x for x in args),
+        torch.zeros(500, dtype=torch.int32, device=cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
 
 
 def test_triangle_kernels_on_the_empty_graph(cuda):

@@ -169,9 +169,76 @@ def test_kernel_args_give_the_count():
     assert int(pv.sum()) == total
 
 
+def test_preps_give_t2_the_narrow_pairs_first():
+    """Both preps hand T2 its probes by class pair, the pairs with a list
+    narrower than _TAIL_WIDE_FROM before the others (T2 runs those with
+    4 lanes a probe and the rest with 8), and the count stays JAX's, on
+    an upper-triangular RMAT-11 at h = 16, which has both kinds."""
+    from graphmat_tpu_torch.io.transforms import convert_to_upper_triangular
+    from graphmat_tpu_torch.utils.generators import rmat_edgelist
+    e = convert_to_upper_triangular(rmat_edgelist(11, 16, seed=1,
+                                                  device="cpu"))
+    s, r = np.asarray(e.src) - 1, np.asarray(e.dst) - 1
+    n, h = e.n, 16
+    u, v = torch.as_tensor(s).long(), torch.as_tensor(r).long()
+    _, (mats, ladder, gk, *_) = ttri._kernel_args(u, v, n, h, True)
+    nc = len(ladder)
+    host = ttri._prep(s, r, n, h=h, assume_canonical=True)
+    kinds = []
+    for lad, pairs in ((ladder, [(g // nc, g % nc) for g in gk.tolist()]),
+                       (host["ladder"], [(cs, cr) for cs, cr, *_ in sorted(
+                           host["groups"], key=lambda g: ttri._tail_order(
+                               host["ladder"], g[0], g[1]))])):
+        rank = [ttri._tail_order(lad, cs, cr) for cs, cr in pairs]
+        assert rank == sorted(rank)
+        kinds.append({min(lad[cs], lad[cr]) >= ttri._TAIL_WIDE_FROM
+                      for cs, cr in pairs})
+    assert kinds[0] == {False, True}
+    want_pv, want_total = jtri.count_triangles_bucketed(
+        s, r, n, h=h, assume_canonical=True)
+    for impl in ("device", "host"):
+        pv, total = ttri.count_triangles_bucketed(
+            u, v, n, h=h, assume_canonical=True, impl=impl)
+        np.testing.assert_array_equal(pv.numpy(), np.asarray(want_pv))
+        assert total == want_total
+
+
 def _popcount_and(a, b):
     x = (a & b).astype(np.uint32).view(np.uint8)
     return np.unpackbits(x, axis=1).sum(1)
+
+
+def _summary_np(bm):
+    """Bit j of a row's summary words: word j of its bitmap row is not 0."""
+    rows, w4 = bm.shape
+    sw = -(-w4 // 32)
+    nz = np.zeros((rows, sw * 32), bool)
+    nz[:, :w4] = bm != 0
+    return (nz.reshape(rows, sw, 32).astype(np.uint64)
+            << np.arange(32, dtype=np.uint64)).sum(2).astype(
+                np.uint32).view(np.int32)
+
+
+def _core_brute(bm, sm, iu, iv, s, nacc):
+    """T1's function word by word in numpy: the words marked in both
+    summaries, each AND's popcount."""
+    want = np.zeros(nacc, np.int64)
+    smu = sm.view(np.uint32)
+    for e in range(len(iu)):
+        a, b = iu[e], iv[e]
+        c = 0
+        for j in range(bm.shape[1]):
+            if (smu[a, j // 32] & smu[b, j // 32]) >> np.uint32(j % 32) & 1:
+                c += bin(int(bm[a, j] & bm[b, j])).count("1")
+        want[s[e]] += c
+    return want
+
+
+def _core_call(bm, sm, iu, iv, s, nacc):
+    return ttri.core_count(torch.as_tensor(bm.view(np.int32)),
+                           torch.as_tensor(sm), torch.as_tensor(iu),
+                           torch.as_tensor(iv), torch.as_tensor(s),
+                           torch.zeros(nacc, dtype=torch.int32)).numpy()
 
 
 @pytest.mark.parametrize("w4", [4, 8, 128])
@@ -187,11 +254,63 @@ def test_core_count_plain_version_against_brute_force(w4):
     s = rng.integers(0, nacc, e).astype(np.int32)
     want = np.zeros(nacc, np.int64)
     np.add.at(want, s, _popcount_and(bm[iu], bm[iv]))
-    pv = ttri.core_count(torch.as_tensor(bm.view(np.int32)),
-                         torch.as_tensor(iu), torch.as_tensor(iv),
-                         torch.as_tensor(s),
-                         torch.zeros(nacc, dtype=torch.int32))
-    np.testing.assert_array_equal(pv.numpy(), want)
+    np.testing.assert_array_equal(
+        _core_call(bm, _summary_np(bm), iu, iv, s, nacc), want)
+
+
+@pytest.mark.parametrize("w4", [4, 36, 128, 132])
+def test_core_count_two_level_against_brute_force(w4):
+    """Sparse rows (a few set bits: the summary's case), empty rows, a
+    hub row with every bit set, summaries of one word and of several, a
+    last summary word that covers fewer than 32 words; then the same
+    rows under all-zero summaries (the kernel reads no word: 0) and
+    under summaries that mark only some nonzero words (those count)."""
+    rng = np.random.default_rng(100 + w4)
+    rows, e, nacc = 30, 800, 11
+    bm = np.zeros((rows, w4), np.uint32)
+    for r in range(rows - 1):
+        k = int(rng.integers(0, 6))     # 0-5 bits: empty and sparse rows
+        bits = rng.choice(32 * w4, k, replace=False)
+        np.bitwise_or.at(bm[r], bits >> 5,
+                         np.uint32(1) << (bits & 31).astype(np.uint32))
+    bm[3] = 0xFFFFFFFF                  # a hub row
+    bm[4, -1] = np.uint32(1 << 31)      # only the row's last word
+    iu = rng.integers(0, rows, e).astype(np.int32)
+    iv = rng.integers(0, rows, e).astype(np.int32)
+    iu[:40], iv[:40] = 3, np.arange(40) % rows   # the hub against all
+    iu[40:60], iv[40:60] = 4, 3
+    s = rng.integers(0, nacc, e).astype(np.int32)
+    sm = _summary_np(bm)
+    want = np.zeros(nacc, np.int64)
+    np.add.at(want, s, _popcount_and(bm[iu], bm[iv]))
+    np.testing.assert_array_equal(_core_brute(bm, sm, iu, iv, s, nacc), want)
+    np.testing.assert_array_equal(_core_call(bm, sm, iu, iv, s, nacc), want)
+    zero = np.zeros_like(sm)
+    np.testing.assert_array_equal(_core_call(bm, zero, iu, iv, s, nacc), 0)
+    part = sm & rng.integers(0, 2 ** 31, sm.shape).astype(np.int32)
+    np.testing.assert_array_equal(
+        _core_call(bm, part, iu, iv, s, nacc),
+        _core_brute(bm, part, iu, iv, s, nacc))
+
+
+@pytest.mark.parametrize("name", ["random", "random_h64", "hubs_h64",
+                                  "h4096_n6000", "n90_w3",
+                                  "random_h0_all_tail"])
+def test_device_prep_summaries_equal_the_host_preps(name):
+    """T1's summaries from the device prep (marked from the core edges'
+    words) equal the host prep's (packed from its bitmap), and mark
+    exactly the bitmap's nonzero words."""
+    s, r, n, h, canon = _case(name)
+    h = ttri.CORE_H if h is None else h
+    bm, sm, *_ = next(ttri._kernel_args(torch.as_tensor(s).long(),
+                                        torch.as_tensor(r).long(), n, h,
+                                        canon))
+    host = ttri._prep(s, r, n, h=h, assume_canonical=canon)["bitmap"]
+    hb = np.zeros((host.shape[0], bm.shape[1]), np.uint32)
+    hb[:, :host.shape[1]] = host
+    np.testing.assert_array_equal(bm.numpy().view(np.uint32), hb)
+    np.testing.assert_array_equal(sm.numpy(), ttri._tc_summary_host(hb))
+    np.testing.assert_array_equal(sm.numpy(), _summary_np(hb))
 
 
 @pytest.mark.parametrize("ordered", [True, False])
@@ -230,15 +349,57 @@ def test_tail_count_plain_version_against_brute_force(ordered):
     np.testing.assert_array_equal(pv.numpy(), want)
 
 
+@pytest.mark.parametrize("ladder", [(1, 2, 8, 16), (8, 64, 256, 512, 4096)])
+def test_tail_count_edge_lists_against_brute_force(ladder):
+    """Lists at their full class width (no pad), empty lists (all pad),
+    hub lists of the widest class, runs of probes that share one list
+    (as T2 keeps a staged list for the next probe), and widths that are
+    not multiples of 4 (the host ladder's smallest classes)."""
+    rng = np.random.default_rng(len(ladder))
+    L = len(ladder)
+    flat, starts, cls, lists = [], [], [], []
+    off = 0
+    for i in range(40):
+        c = i % L
+        k = (ladder[c] if i % 3 == 0 else 0 if i % 7 == 1
+             else int(rng.integers(1, ladder[c] + 1)))
+        ids = np.sort(rng.choice(3 * ladder[-1], k, replace=False))
+        row = np.full(ladder[c], PAD_ID, np.int32)
+        row[:k] = ids
+        flat.append(row)
+        starts.append(off)
+        off += ladder[c]
+        cls.append(c)
+        lists.append(set(ids.tolist()))
+    mats = np.concatenate(flat)
+    a = rng.integers(0, 40, 300)
+    b = np.repeat(rng.integers(0, 40, 30), 10)   # runs of one list
+    gk = np.array([cls[i] * L + cls[j] for i, j in zip(a, b)], np.int32)
+    sp = rng.integers(0, 9, 300).astype(np.int32)
+    want = np.zeros(9, np.int64)
+    np.add.at(want, sp, [len(lists[i] & lists[j]) for i, j in zip(a, b)])
+    starts = np.asarray(starts, np.int32)
+    pv = ttri.tail_count(torch.as_tensor(mats), ladder,
+                         *(torch.as_tensor(x) for x in
+                           (gk, starts[a], starts[b], sp)),
+                         torch.zeros(9, dtype=torch.int32))
+    np.testing.assert_array_equal(pv.numpy(), want)
+
+
 def test_kernel_wrappers_check_their_arguments():
     z = torch.zeros(4, dtype=torch.int32)
     bm = torch.zeros((2, 4), dtype=torch.int32)
+    sm = torch.zeros((2, 1), dtype=torch.int32)
     with pytest.raises(TypeError):
-        ttri.core_count(bm.long(), z, z, z, z)
+        ttri.core_count(bm.long(), sm, z, z, z, z)
     with pytest.raises(ValueError, match="multiple of 4"):
-        ttri.core_count(torch.zeros((2, 3), dtype=torch.int32), z, z, z, z)
+        ttri.core_count(torch.zeros((2, 3), dtype=torch.int32), sm, z, z, z,
+                        z)
+    with pytest.raises(ValueError, match="ceil"):
+        ttri.core_count(bm, torch.zeros((2, 2), dtype=torch.int32), z, z, z,
+                        z)
     with pytest.raises(ValueError, match="one length"):
-        ttri.core_count(bm, z, z[:3], z, z)
+        ttri.core_count(bm, sm, z, z[:3], z, z)
     with pytest.raises(ValueError, match="ladder"):
         ttri.tail_count(z, [], z, z, z, z, z)
     with pytest.raises(ValueError, match="impl"):
