@@ -14,7 +14,9 @@ delta-stepping) on both kernel routes: K1 with its receiver-finality skip
 (``GRAPHMAT_KERNEL=v2``), then ACTIVE_ONLY K-wide programs on K3's sparse
 mode (K4, with K5's got count fused in), then TriangleCounting (its two
 hot loops, T1 and T2) and GetNeighbors, the 2D-sharded engine, the push's
-sums in K1's fixed order, the converter and the RMAT stream's kernels.
+sums in K1's fixed order, the converter, the RMAT stream's kernels, and
+the last modules: the generic ⊕, the native text parser, the twin of the
+entry points and the debug validators.
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit) and the software;
@@ -197,6 +199,22 @@ Phases, in order; any failure raises and the script exits non-zero:
     exactly; phase 5's edge list (or a new RMAT-22 draw) against
     RMAT_GOLDEN; the keys kernel timed at RMAT-22 beside its plain
     version and its bound.
+23. the last modules: (a) the generic ⊕ at full width: on phase 5's
+    RMAT-22 edge list a min-plus SSSP whose reduce is
+    ``Monoid("generic", torch.minimum, int32 max)`` gives K1's min
+    route's distances (and steps) exactly and a PageRank whose reduce is
+    ``Monoid("generic", torch.add, 0)`` K1's vector within 1e-5 after 10
+    steps; on RMAT-20 over 2x2 LocalMesh tiles each gives the one-device
+    result; step times of both routes, the generic runs' peak memory;
+    (b) RMAT-20 x 16 with weights 1..255 written once as text (RMAT-18
+    where the write takes more than 30 s) and read by the native parser
+    (``load_edgelist(binaryformat=False)``) and by ``np.loadtxt``: equal
+    arrays, both host times; (c) ``graft_entry.entry()``'s step against
+    its plain version (1e-6) and ``dryrun_multichip(4)`` and ``(8)`` on
+    tiles of the card, their launches counted with the main path's; (d)
+    ``GRAPHMAT_DEBUG=1`` on the RMAT-22 graph (both directions,
+    uncompacted and compacted, and 2x2 tiles): every CSR and K1/push
+    split validated as it is built, then ``validate_graph``, timed.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Phase numbers given as arguments run
@@ -4325,6 +4343,273 @@ def phase_rmat(device, card, e=None, scales=RMAT_SCALES, time_scale=22,
     return res
 
 
+# ------------------------------------------- phase 23: the last modules
+
+GENERIC_STEPS = 10    # phase 23 (a): fixed PageRank steps, each route
+GENERIC_MESH = (2, 2)  # phase 23 (a) and (d)'s LocalMesh of the card
+GENERIC_RTOL = 1e-5   # of max(1, |pr|): the scan's pairwise sums against
+                      # K1's, and the tiles' against one device's
+ENTRY_RTOL = 1e-6     # entry()'s step against its plain version
+TEXT_WEIGHTS = 255    # phase 23 (b)'s weights, 1..255
+TEXT_WRITE_S = 30     # past this, phase 23 (b) writes RMAT-18 instead
+
+
+def generic_programs():
+    """SSSP with its min, and PageRank with its sum, as generic Monoids
+    (torch.minimum with the int32 infinity, torch.add with 0): both
+    still declare the kernel's semiring, and the router must take the
+    segment route."""
+    import torch
+    from graphmat_tpu_torch import Monoid
+    from graphmat_tpu_torch.apps import pagerank, sssp
+
+    class GenericMinPlus(sssp.SSSPProgram):
+        reduce = Monoid("generic", torch.minimum,
+                        lambda dt: torch.iinfo(dt).max)
+
+    class GenericPageRank(pagerank.PageRankProgram):
+        reduce = Monoid("generic", torch.add, lambda dt: 0)
+    return GenericMinPlus, GenericPageRank
+
+
+def generic_runs(g, device, generic, steps=GENERIC_STEPS):
+    """SSSP from vertex 1 to convergence and ``steps`` PageRank steps on
+    ``g`` through K1 (``generic=False``) or the generic ⊕'s segment route:
+    {"dist", "sssp_steps", "sssp_s", "pr", "pr_step_ms"}.  The times are
+    of a second run of each (the first built the work splits): the SSSP
+    run again from the start, ``steps`` more PageRank steps."""
+    from graphmat_tpu_torch.apps import pagerank, sssp
+    from graphmat_tpu_torch.core.runtime import engine_for
+    min_plus, pr_prog = (generic_programs() if generic else
+                         (sssp.SSSPProgram, pagerank.PageRankProgram))
+    sssp.init_sssp_graph(g, 1)
+    eng = engine_for(min_plus(), g)
+    if generic and (eng._semiring is not None or eng._vec is not None):
+        raise AssertionError("a generic ⊕ was routed to a kernel")
+    out = {"sssp_steps": eng.run(), "dist": g.vp_numpy()["distance"]}
+    sssp.init_sssp_graph(g, 1)
+    _, out["sssp_s"] = timed(eng.run, device)
+    pagerank.init_pagerank_graph(g)
+    g.set_all_active()
+    engine_for(pagerank.DegreeProgram(), g).run(iterations=1)
+    eng = engine_for(pr_prog(), g)
+    eng.run(iterations=steps)
+    out["pr"] = g.vp_numpy()["pagerank"]
+    _, sec = timed(lambda: eng.run(iterations=steps), device)
+    out["pr_step_ms"] = sec / steps * 1e3
+    return out
+
+
+def phase_generic(device, card, e=None, scale=22, mesh_scale=20,
+                  edge_factor=16, seed=1):
+    """Phase 23 (a): the generic ⊕ at full width.  On RMAT-``scale`` (phase
+    5's edge list, or a new draw) a min-plus SSSP whose reduce is
+    ``Monoid("generic", torch.minimum, int32 max)`` gives K1's min
+    route's distances exactly, and a PageRank whose reduce is
+    ``Monoid("generic", torch.add, 0)`` K1's vector within GENERIC_RTOL
+    after GENERIC_STEPS steps; on RMAT-``mesh_scale`` over GENERIC_MESH
+    tiles of ``device`` each gives the one-device result (min exactly,
+    the sum within GENERIC_RTOL).  The step times of both routes and the
+    generic runs' peak device memory are logged.  The K1 runs are the
+    reference: their launches count in no record."""
+    import torch
+    from graphmat_tpu_torch import Graph
+    from graphmat_tpu_torch.parallel.dist_graph import DistGraph
+    from graphmat_tpu_torch.parallel.mesh import LocalMesh
+    from graphmat_tpu_torch.utils.generators import rmat_edgelist
+    cuda = torch.device(device).type == "cuda"
+    res = {"card": card}
+    if e is None:
+        e = rmat_edgelist(scale, edge_factor, seed=seed, device=device)
+    g = Graph(e, device=device)
+    k1 = generic_runs(g, device, generic=False)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    gen = generic_runs(g, device, generic=True)
+    check_equal(f"RMAT-{scale} generic min-plus", gen["dist"], k1["dist"])
+    if gen["sssp_steps"] != k1["sssp_steps"]:
+        raise AssertionError(f"RMAT-{scale} generic min-plus: "
+                             f"{gen['sssp_steps']} steps, K1 "
+                             f"{k1['sssp_steps']}")
+    res[f"rmat{scale}"] = {
+        "edges": e.nnz, "sssp_steps": k1["sssp_steps"],
+        "pr_max_rel_err": check_close(f"RMAT-{scale} generic PageRank",
+                                      gen["pr"], k1["pr"], GENERIC_RTOL),
+        "k1": {k: k1[k] for k in ("sssp_s", "pr_step_ms")},
+        "generic": {k: gen[k] for k in ("sssp_s", "pr_step_ms")},
+        "generic_peak_bytes": (torch.cuda.max_memory_allocated()
+                               if cuda else None)}
+    del g, k1, gen
+    if cuda:
+        torch.cuda.empty_cache()
+    em = rmat_edgelist(mesh_scale, edge_factor, seed=seed, device=device)
+    one = generic_runs(Graph(em, device=device), device, generic=True)
+    nt = GENERIC_MESH[0] * GENERIC_MESH[1]
+    tiles = generic_runs(DistGraph(em, LocalMesh([device] * nt,
+                                                 GENERIC_MESH)),
+                         device, generic=True)
+    check_equal(f"RMAT-{mesh_scale} generic min-plus on tiles",
+                tiles["dist"], one["dist"])
+    res[f"rmat{mesh_scale}_mesh"] = {
+        "edges": em.nnz, "mesh": list(GENERIC_MESH),
+        "sssp_steps": tiles["sssp_steps"],
+        "pr_max_rel_err": check_close(
+            f"RMAT-{mesh_scale} generic PageRank on tiles", tiles["pr"],
+            one["pr"], GENERIC_RTOL),
+        "one_device": {k: one[k] for k in ("sssp_s", "pr_step_ms")},
+        "tiles": {k: tiles[k] for k in ("sssp_s", "pr_step_ms")}}
+    log("phase 23 (a): the generic ⊕ gives K1's results: "
+        + json.dumps(res))
+    return res
+
+
+def write_text_edges(e, path):
+    """``e`` as the text format ``write_edgelist`` writes (an "m n nnz"
+    header, then "src dst val" rows), built from lists."""
+    cols = [np.asarray(a.cpu() if hasattr(a, "cpu") else a).tolist()
+            for a in (e.src, e.dst, e.val)]
+    with open(path, "w") as f:
+        f.write(f"{e.m} {e.n} {e.nnz}\n")
+        f.write("\n".join(map("{} {} {}".format, *cols)))
+        f.write("\n")
+
+
+def phase_text_loader(device, card, scale=20, edge_factor=16, seed=1,
+                      small_scale=18):
+    """Phase 23 (b): RMAT-``scale`` x 16 with weights 1..TEXT_WEIGHTS,
+    written once as text (RMAT-``small_scale`` where that write takes more
+    than TEXT_WRITE_S), drawn on ``device``, read back by
+    ``load_edgelist(binaryformat=False)``
+    through the port's native parser and by ``np.loadtxt``: the arrays
+    equal each other and the edges written.  Both host times logged."""
+    from graphmat_tpu_torch import load_edgelist
+    from graphmat_tpu_torch.utils.generators import rmat_edgelist
+    out_dir = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "phase23_edges.txt")
+    res = {"card": card}
+    try:
+        for sc in (scale, small_scale):
+            e = rmat_edgelist(sc, edge_factor, seed=seed,
+                              weight_range=TEXT_WEIGHTS, device=device)
+            t0 = time.perf_counter()
+            write_text_edges(e, path)
+            res.update(scale=sc, edges=e.nnz, bytes=os.path.getsize(path),
+                       write_s=time.perf_counter() - t0)
+            if res["write_s"] <= TEXT_WRITE_S:
+                break
+            log(f"phase 23 (b): writing RMAT-{sc} took "
+                f"{res['write_s']:.1f} s; RMAT-{small_scale} instead")
+        t0 = time.perf_counter()
+        got = load_edgelist(path, binaryformat=False)
+        res["native_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        data = np.loadtxt(path, skiprows=1, ndmin=2, dtype=np.int64)
+        res["loadtxt_s"] = time.perf_counter() - t0
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+    want = [data[:, i].astype(np.int32) for i in range(3)]
+    written = [a.cpu().numpy() for a in (e.src, e.dst, e.val)]
+    for name, a, b, c in zip(("src", "dst", "val"), got.astuple(), want,
+                             written):
+        if not (np.array_equal(a, b) and np.array_equal(a, c)
+                and a.dtype == np.int32):
+            raise AssertionError(f"phase 23 (b): the native parser's {name} "
+                                 "differs from np.loadtxt's")
+    if (got.m, got.n) != (e.m, e.n):
+        raise AssertionError("phase 23 (b): the header's dims differ")
+    log("phase 23 (b): the native text parser gives np.loadtxt's arrays: "
+        + json.dumps(res))
+    return res
+
+
+def phase_graft(device, card):
+    """Phase 23 (c): ``graft_entry.entry()``'s step (one K1 dense launch)
+    against its plain version within ENTRY_RTOL, then
+    ``dryrun_multichip(4)`` and ``(8)`` on tiles of ``device``, their
+    launches counted (the entry points' main path)."""
+    import torch
+    from graphmat_tpu_torch import graft_entry
+    res = {"card": card}
+    fn, args = graft_entry.entry(device)
+    reset_all_counts()
+    out, sec = timed(lambda: fn(*args), device)
+    res["entry"] = {"launches": read_all_counts(), "s": sec,
+                    "max_rel_err": check_close(
+                        "entry() step", out.cpu().numpy(),
+                        graft_entry.pagerank_step_reference(*args)
+                        .cpu().numpy(), ENTRY_RTOL)}
+    counts = {}
+    for n in (4, 8):
+        reset_all_counts()
+        _, res[f"dryrun{n}_s"] = timed(
+            lambda n=n: graft_entry.dryrun_multichip(n, device), device)
+        for k, v in read_all_counts().items():
+            counts[k] = counts.get(k, 0) + v
+    if torch.device(device).type == "cuda":
+        need_launch("dryrun_multichip", counts, "k1", "k2", "k3", "push")
+    for k, v in res["entry"]["launches"].items():
+        counts[k] = counts.get(k, 0) + v
+    res["launches"] = counts
+    log("phase 23 (c): entry() and dryrun_multichip(4), (8): "
+        + json.dumps(res))
+    return res
+
+
+def phase_validators(device, card, e=None, scale=22, edge_factor=16,
+                     seed=1):
+    """Phase 23 (d): ``GRAPHMAT_DEBUG=1`` on RMAT-``scale`` (phase 5's
+    edge list, or a new draw): a Graph with both directions uncompacted
+    and one compacted (``compact=True``), and the same edges on
+    GENERIC_MESH tiles, built with the validators on (each CSR and each
+    K1 and push split checked as it is built), then ``validate_graph``
+    on each, timed."""
+    import torch
+    from graphmat_tpu_torch import Graph
+    from graphmat_tpu_torch.ops import spmv2, spmv2u
+    from graphmat_tpu_torch.parallel.dist_graph import DistGraph
+    from graphmat_tpu_torch.parallel.mesh import LocalMesh
+    from graphmat_tpu_torch.utils.debug import validate_graph
+    from graphmat_tpu_torch.utils.generators import rmat_edgelist
+    if e is None:
+        e = rmat_edgelist(scale, edge_factor, seed=seed, device=device)
+    nt = GENERIC_MESH[0] * GENERIC_MESH[1]
+    builds = {
+        "uncompacted": lambda: Graph(e, device=device, compact=False),
+        "compacted": lambda: Graph(e, device=device, compact=True),
+        "tiles": lambda: DistGraph(e, LocalMesh([device] * nt,
+                                                GENERIC_MESH))}
+    res = {"card": card, "edges": e.nnz}
+    old = os.environ.get("GRAPHMAT_DEBUG")
+    os.environ["GRAPHMAT_DEBUG"] = "1"
+    try:
+        for name, build in builds.items():
+            def built():
+                g = build()
+                for cs in (g._tiles.values() if isinstance(g, DistGraph)
+                           else ([c] for c in g._csr.values())):
+                    for c in cs:
+                        spmv2u.plan_for(c)
+                        spmv2.plan_for(c)
+                return g
+            g, build_s = timed(built, device)
+            _, check_s = timed(lambda: validate_graph(g), device)
+            res[name] = {"build_and_check_s": build_s,
+                         "validate_graph_s": check_s}
+            del g
+            if torch.device(device).type == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        if old is None:
+            del os.environ["GRAPHMAT_DEBUG"]
+        else:
+            os.environ["GRAPHMAT_DEBUG"] = old
+    log("phase 23 (d): the debug validators pass: " + json.dumps(res))
+    return res
+
+
 def kernel_record(name, source, replaces, launches, err, ms, plain_ms,
                   bound_ms, bound_by, library_ms):
     return {"name": name, "route": "cuda", "source": source,
@@ -4448,6 +4733,13 @@ def main(argv=None):
         phase_h1_steps("cuda", card)
     if want(22):
         p22 = phase_rmat("cuda", card, e=e_slice)
+    if want(23):
+        t23 = time.perf_counter()
+        phase_generic("cuda", card, e=e_slice)
+        phase_text_loader("cuda", card)
+        p23 = phase_graft("cuda", card)
+        phase_validators("cuda", card, e=e_slice)
+        log(f"phase 23: {time.perf_counter() - t23:.1f} s")
     del e_slice
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     if only:
@@ -4459,12 +4751,16 @@ def main(argv=None):
                    trav["launches"].values() for c in routes.values())
     # phase 20 (b): the sharded main path's runs launch K1 on tiles; the
     # checks of phase 20 (a) are not the main path and count nowhere here
-    k1_path = sum(k1.values()) + total("k1") + launches(dist_b, "k1")
-    k2_path = k2["aux_gather"] + total("k2")
+    # phase 23 (c): the entry points' runs (entry() and the dry runs)
+    graft = p23["launches"]
+    k1_path = (sum(k1.values()) + total("k1") + launches(dist_b, "k1")
+               + launches(graft, "k1"))
+    k2_path = k2["aux_gather"] + total("k2") + launches(graft, "k2")
     log(card)
     pmax, pm = t4["push_dense_max"], p21["sums"]["sparse 0.01"]
     # the push kernel's launches (min/max) apart from its mark pass's
-    push_path = total("push") - total("push.mark")
+    push_path = (total("push") - total("push.mark") + launches(graft, "push")
+                 - launches(graft, "push.mark"))
     mark_path = total("push.mark")
     sp, k5t = t5["d"]["sparse_0.1"], t5["d"]["k5"]
     kernels = {"kernels": [
@@ -4481,7 +4777,8 @@ def main(argv=None):
         kernel_record(
             "spmv_vec2", "graphmat_tpu_torch/csrc/spmv_vec2.cu",
             "graphmat_tpu/ops/pallas_spmv_vec2.py:510",
-            sum(k3_sgd.values()) + sum(k3_lda.values()), k3_err,
+            sum(k3_sgd.values()) + sum(k3_lda.values())
+            + launches(graft, "k3"), k3_err,
             t3["k3_ms"]["sgd_ms"], t3["k3_ms"]["sgd_plain_ms"],
             t3["k3_ms"]["sgd_bound_ms"], t3["k3_ms"]["sgd_bound_by"], None),
         # the same kernel's lda op at NYTimes shape (its launches are

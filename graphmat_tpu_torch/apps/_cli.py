@@ -29,7 +29,7 @@ import torch
 
 from ..io.edgelist import load_edgelist
 
-__all__ = ["device_from_env", "load_graph_file", "build_graph"]
+__all__ = ["device_from_env", "load_graph_file", "build_graph", "print_first"]
 
 
 def device_from_env() -> torch.device:
@@ -89,3 +89,10 @@ def build_graph(edgelist, **graph_kw):
         mesh = make_mesh(shape=shape)
     print(f"mesh {shape[0]}x{shape[1]} over {nt} devices")
     return DistGraph(edgelist, mesh, **graph_kw)
+
+
+def print_first(vals, k: int = 10, label: str = ""):
+    """Print the first ``k`` values as ``{label}{i} : {v}``, ``i``
+    1-based (``graphmat_tpu/apps/_cli.py:66-68``)."""
+    for i, v in enumerate(vals[:k], start=1):
+        print(f"{label}{i} : {v}")

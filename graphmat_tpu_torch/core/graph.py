@@ -29,6 +29,7 @@ import torch
 
 from ..io.edgelist import EdgeList, edgelist_from_arrays
 from ..ops.compact import compact_auto, divert_stragglers, pad_positions
+from ..utils.debug import debug_enabled, validate_csr, validate_plan
 
 __all__ = ["Graph", "CSR", "round_up"]
 
@@ -84,7 +85,10 @@ class CSR:
         first use and kept (it reads the structure only, which never
         changes)."""
         if name not in self._plans:
-            self._plans[name] = build(self.rowptr)
+            plan = build(self.rowptr)
+            if debug_enabled():
+                validate_plan(name, self.rowptr, plan)
+            self._plans[name] = plan
         return self._plans[name]
 
     @property
@@ -121,7 +125,9 @@ def _build_csr(senders, receivers, vals, n_rows: int, n_send: int,
                compact, compact_kw) -> CSR:
     """Sort 0-based COO (int64 tensors) by (receiver, sender) into a CSR of
     ``n_rows`` receivers over ``n_send`` senders (a tile of a sharded graph
-    has ``n_rows != n_send``), and compact it when ``compact`` says so."""
+    has ``n_rows != n_send``), and compact it when ``compact`` says so.
+    Under ``GRAPHMAT_DEBUG=1`` the CSR is validated (its edge count that
+    of the COO given)."""
     order = torch.argsort(receivers * n_send + senders, stable=True)
     col = senders[order].to(torch.int32)
     row = receivers[order].to(torch.int32)
@@ -146,6 +152,8 @@ def _build_csr(senders, receivers, vals, n_rows: int, n_send: int,
                                     device=col.device)
             csr.sent_ext = torch.empty(n_ext, dtype=torch.uint8,
                                        device=col.device)
+    if debug_enabled():
+        validate_csr(csr, senders.numel())
     return csr
 
 

@@ -25,7 +25,7 @@ from .tree import tree_map
 from .types import Monoid
 
 __all__ = ["apply_to_all_vertices", "apply_reduce_all_vertices",
-           "apply_to_all_edges"]
+           "apply_to_all_edges", "reduce_tree"]
 
 _REDUCE = {"sum": lambda a: a.sum(0), "min": lambda a: a.amin(0),
            "any": lambda a: a.amin(0), "max": lambda a: a.amax(0),
@@ -43,40 +43,74 @@ def apply_to_all_vertices(graph: Graph, fn: Callable) -> None:
     graph.vp = tree_map(keep, new_vp, graph.vp)
 
 
+def _fold_valid(a, combine, cat):
+    """Pairwise log-depth fold of the rows of ``a`` with ``combine``: the
+    first half's rows with the second's, an odd last row carried on by
+    ``cat``."""
+    while a.shape[0] > 1:
+        half = a.shape[0] // 2
+        folded = combine(a[:half], a[half: 2 * half])
+        a = cat(folded, a[2 * half:]) if a.shape[0] & 1 else folded
+    return a[0]
+
+
 def _reduce_leaf(leaf, mask, red):
-    """Reduce one ``[n_pad, ...]`` leaf over valid vertices with ``red``:
-    a kind string, a :class:`Monoid`, or an associative ``combine(a, b)``
-    folded pairwise on the host over exactly the valid entries."""
+    """Reduce one ``[n_pad, ...]`` leaf over valid vertices with ``red``
+    (``graphmat_tpu/core/graph_ops.py:44-74``): a kind string, a
+    :class:`Monoid`, or an associative ``combine(a, b)``.  A generic
+    Monoid folds pairwise, log-depth, over exactly the valid entries, on
+    tensors on the leaf's device (``combine_fn`` gets tensors, as in the
+    Engine); an empty reduce gives its identity.  A bare callable folds
+    the same way over numpy arrays on the host (the reference folds on
+    rank 0, ``multinode/reduce.h:39-74``)."""
     if isinstance(red, str):
         red = Monoid(red)
-    if isinstance(red, Monoid):
+    if isinstance(red, Monoid) and red.kind != "generic":
         m = mask.reshape(mask.shape + (1,) * (leaf.dim() - 1))
         filled = torch.where(m, leaf, torch.as_tensor(
             red.identity(leaf.dtype), dtype=leaf.dtype, device=leaf.device))
         return _REDUCE[red.kind](filled).cpu().numpy()
+    if isinstance(red, Monoid):
+        a = leaf[mask]
+        if a.shape[0] == 0:
+            return torch.full(tuple(leaf.shape[1:]),
+                              red.identity(leaf.dtype),
+                              dtype=leaf.dtype).numpy()
+        return _fold_valid(a, red.combine, lambda x, y: torch.cat(
+            (x, y))).cpu().numpy()
     a = leaf[mask].cpu().numpy()
     if a.shape[0] == 0:
         raise ValueError("empty reduce with no identity: pass a Monoid")
-    while a.shape[0] > 1:
-        half = a.shape[0] // 2
-        folded = np.asarray(red(a[:half], a[half: 2 * half]))
-        a = (np.concatenate([folded, a[2 * half:]], axis=0)
-             if a.shape[0] & 1 else folded)
-    return a[0]
+    return _fold_valid(a, lambda x, y: np.asarray(red(x, y)),
+                       lambda x, y: np.concatenate([x, y]))
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, (str, Monoid)) or callable(x)
+
+
+def reduce_tree(mapped, mask, reduce):
+    """:func:`_reduce_leaf` across a mapped tree
+    (``graphmat_tpu/core/graph_ops.py:77-88``): ``reduce`` is one spec
+    for every leaf, or a dict (list, tuple) of specs shaped like
+    ``mapped``."""
+    if _is_spec(reduce):
+        return tree_map(lambda leaf: _reduce_leaf(leaf, mask, reduce),
+                        mapped)
+    if isinstance(reduce, dict):
+        return {k: reduce_tree(mapped[k], mask, r)
+                for k, r in reduce.items()}
+    return type(reduce)(reduce_tree(m, mask, r)
+                        for m, r in zip(mapped, reduce))
 
 
 def apply_reduce_all_vertices(graph: Graph, map_fn: Callable,
                               reduce="sum"):
     """The reduce of ``map_fn(vp)`` (a tree of ``[n_pad, ...]`` tensors)
     over valid vertices, as host values.  ``reduce`` is a kind string, a
-    :class:`Monoid`, an associative ``combine(a, b)``, or a dict of those
-    shaped like the mapped tree."""
-    mapped = map_fn(graph.vp)
-    mask = graph.valid_vertex
-    if isinstance(reduce, dict):
-        return {k: _reduce_leaf(mapped[k], mask, r)
-                for k, r in reduce.items()}
-    return tree_map(lambda leaf: _reduce_leaf(leaf, mask, reduce), mapped)
+    :class:`Monoid` (generic included), an associative ``combine(a, b)``,
+    or a dict of those shaped like the mapped tree."""
+    return reduce_tree(map_fn(graph.vp), graph.valid_vertex, reduce)
 
 
 def apply_to_all_edges(graph: Graph, fn: Callable) -> None:

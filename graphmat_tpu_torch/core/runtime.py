@@ -20,7 +20,8 @@ of runtime.py:278-352, after ``include/GraphMatRuntime.h:94-279``):
    (:func:`graphmat_tpu_torch.ops.spmv2.spmv_push`): min and max over the
    direction's sender-major index, a sum as K1 over the receiver CSR
    (after the push's mark pass on a sparse sweep), so that its sums repeat
-   exactly; else the plain segment reduce, or for a
+   exactly; else the plain segment reduce (always, for a program whose
+   ⊕ is or holds a generic :class:`Monoid`), or for a
    ``vector_message`` program the concat reduce
    (:func:`graphmat_tpu_torch.ops.segment.segment_concat`), as in JAX
    (runtime.py:158-161, 308-335);
@@ -52,7 +53,8 @@ from ..ops.spmv_vec2 import spmv_vec
 from .graph import Graph
 from .program import GraphProgram, IterationContext, Semiring, VecSemiring
 from .tree import tree_map
-from .types import Activity, Direction, Monoid, UNTIL_CONVERGENCE
+from .types import (Activity, Direction, Monoid, UNTIL_CONVERGENCE,
+                    has_generic)
 
 __all__ = ["Engine", "engine_for", "run_graph_program",
            "graph_program_init", "legacy_kernel_env"]
@@ -139,18 +141,22 @@ class Routing:
         self._dense = program.activity == Activity.ALL_VERTICES
         # a concat ⊕ runs the segment path (JAX runtime.py:158-161)
         self._vecmsg = bool(getattr(program, "vector_message", False))
+        # so does a generic ⊕, which no kernel has a layout for: its
+        # directions fold with combine_fn (_combine_tree), whatever
+        # semiring the program declares
+        segment_only = self._vecmsg or has_generic(program.reduce)
         # a scalar kernel cannot read the receiver's property: a program
         # whose ⊗ does (the default) runs its own process_message, as the
         # JAX Engine does (graphmat_tpu/core/runtime.py:190-192)
         self._semiring = (None if program.process_requires_vertexprop
-                          or self._vecmsg
+                          or segment_only
                           else _normalize_semiring(program.semiring()))
         # dense K3 for ALL_VERTICES, its sparse mode for ACTIVE_ONLY; the
         # JAX package's fallback from K4 past a VMEM budget
         # (graphmat_tpu/core/runtime.py:162-179) has no counterpart: the
         # card's kernel reads its operands from device memory
         self._vec: Optional[VecSemiring] = (
-            None if self._vecmsg else program.vec_semiring())
+            None if segment_only else program.vec_semiring())
         self._receivers = _direction_receivers(program.order)
         # the kernel selector, read when the engine is built, as in JAX
         self._push = legacy_kernel_env()

@@ -3,9 +3,11 @@
 Counterpart of ``graphmat_tpu/ops/segment.py``.  Contributions are
 reduced into their receivers with ``scatter_reduce_`` over an
 identity-filled output (``include_self=True``), leafwise over dicts,
-lists and tuples of tensors.  A vector-message program's ⊕ is the concat
-reduce, :func:`segment_concat`.  The generic associative-scan reduce is
-not ported yet.
+lists and tuples of tensors.  A generic :class:`Monoid` (an arbitrary
+associative ``combine_fn``) reduces by a log-depth segmented scan over
+receiver-sorted edges (:func:`_generic_segment_reduce`), the counterpart
+of the JAX package's ``lax.associative_scan``.  A vector-message
+program's ⊕ is the concat reduce, :func:`segment_concat`.
 """
 
 from __future__ import annotations
@@ -26,15 +28,55 @@ def _bcast(mask, like):
     return mask.reshape(mask.shape + (1,) * (like.dim() - mask.dim()))
 
 
+def _generic_segment_reduce(monoid: Monoid, data, seg_ids,
+                            num_segments: int):
+    """Sorted-segment reduce for an arbitrary associative combine
+    (``graphmat_tpu/ops/segment.py:60-80``): a segmented inclusive scan of
+    the pairs ``(segment-start flag, value)`` whose operator restarts at a
+    flag, in Hillis-Steele form on the tensors' device.  Step ``d`` (1,
+    2, 4, ...) sets ``v[i] = combine(v[i - d], v[i])`` where no flag lies
+    in ``(i - d, i]``, so after ``ceil(log2(L))`` steps, ``L`` the longest
+    segment (one host read), each segment's last position holds its
+    total in edge order; ``combine_fn`` runs once per step on whole
+    tensors.  ``seg_ids`` must ascend; ids outside ``[0, num_segments)``
+    drop."""
+    e = data.shape[0]
+    out = torch.full((num_segments,) + tuple(data.shape[1:]),
+                     monoid.identity(data.dtype), dtype=data.dtype,
+                     device=data.device)
+    if e == 0:
+        return out
+    seg = seg_ids.long()
+    flag = torch.ones(e, dtype=torch.bool, device=data.device)
+    flag[1:] = seg[1:] != seg[:-1]
+    last = torch.ones_like(flag)
+    last[:-1] = flag[1:]
+    starts = torch.nonzero(flag).squeeze(1)
+    longest = int(torch.diff(starts, append=starts.new_tensor([e])).max())
+    v, d = data, 1
+    while d < longest:
+        later = v[d:]
+        step = torch.where(_bcast(flag[d:], later), later,
+                           monoid.combine(v[:-d], later))
+        v = torch.cat((v[:d], step.to(data.dtype)))
+        flag = torch.cat((flag[:d], flag[d:] | flag[:-d]))
+        d *= 2
+    ids = seg[last]
+    keep = (ids >= 0) & (ids < num_segments)
+    out[ids[keep]] = v[last][keep]
+    return out
+
+
 def segment_reduce(monoid: Monoid, data, seg_ids, num_segments: int):
     """Reduce ``data`` (leading edge dim) into ``num_segments`` buckets;
-    a bucket no edge reaches holds the identity."""
+    a bucket no edge reaches holds the identity.  A generic monoid needs
+    ascending ``seg_ids`` (receiver-sorted edges)."""
     if monoid.kind == "or":
         return segment_any(data.bool(), seg_ids, num_segments)
+    if monoid.kind == "generic":
+        return _generic_segment_reduce(monoid, data, seg_ids, num_segments)
     if monoid.kind not in _SCATTER:
-        raise NotImplementedError(
-            f"Monoid kind {monoid.kind!r} has no segment reduce in "
-            "graphmat_tpu_torch yet")
+        raise ValueError(f"unknown monoid kind {monoid.kind}")
     out = torch.full((num_segments,) + tuple(data.shape[1:]),
                      monoid.identity(data.dtype), dtype=data.dtype,
                      device=data.device)

@@ -37,13 +37,14 @@ Two preps, as in the JAX package:
   then the bitmap and its summaries, part 1, the tail lists and part 2
   (:func:`_kernel_args`).  Self loops and duplicates become edges of
   sender ``n`` that count 0; nothing is compacted.
-* ``impl="host"``: the numpy prep (:func:`_tc_prep_numpy`, :func:`_prep`)
-  packs the bitmap (and :func:`_tc_summary_host` its summaries) and the
-  lists on the host and the same two kernels count on the device.  It is
-  the independent oracle of the device prep.
-  The JAX package prefers a native C++ prep there (``_tc_prep_native``,
-  ``planner.cpp``); the port has no loader for it yet, so the numpy prep,
-  which gives the same outputs, always runs.
+* ``impl="host"``: the host prep packs the bitmap (and
+  :func:`_tc_summary_host` its summaries) and the lists on the host
+  (:func:`_prep`) and the same two kernels count on the device.  It is
+  the independent oracle of the device prep.  As in the JAX package it
+  runs the native C++/OpenMP prep (:func:`_tc_prep_native`, the port's
+  copy of ``gm_tc_create``/``gm_tc_fill`` in ``native/tc_prep.cpp``),
+  and the numpy prep (:func:`_tc_prep_numpy`), whose outputs are the
+  same array for array, only for an empty edge list.
 
 The JAX package's TPU upload layouts (5- and 6-byte edge planes) and its
 hi/lo 512-wide partial sums are not copied: here the edges are int64
@@ -254,6 +255,40 @@ def tail_count(mats, ladder, gk, fa, fb, sp, pv):
 
 # ------------------------------------------------------------ host prep
 
+def _tc_prep_native(src0, dst0, n, h, assume_canonical):
+    """The host prep through the port's host library
+    (``graphmat_tpu/ops/triangles.py:73-108``): the outputs of
+    :func:`_tc_prep_numpy`, array for array; None for an empty edge list,
+    which the numpy prep takes."""
+    if not len(src0):
+        return None
+    from ..native import load
+    lib = load()
+    u = np.ascontiguousarray(src0, np.int32)
+    v = np.ascontiguousarray(dst0, np.int32)
+    m_out, m2_out = ctypes.c_int64(), ctypes.c_int64()
+    ncr_out = ctypes.c_int32()
+    hd = lib.gm_tc_create(u.ctypes.data, v.ctypes.data, len(u), n, h,
+                          1 if assume_canonical else 0,
+                          ctypes.byref(m_out), ctypes.byref(m2_out),
+                          ctypes.byref(ncr_out))
+    m, m2, ncr = int(m_out.value), int(m2_out.value), int(ncr_out.value)
+    W = (min(h, n) + 31) // 32
+    try:
+        out = dict(s_all=np.empty(m, np.int32), r_all=np.empty(m, np.int32),
+                   iu_row=np.empty(m, np.int32), iv_row=np.empty(m, np.int32),
+                   bitmap=np.zeros((ncr + 1, W), np.uint32),
+                   s2=np.empty(m2, np.int32), r2=np.empty(m2, np.int32),
+                   t2rank=np.empty(m2, np.int32), t_of=np.empty(n, np.int32),
+                   odeg=np.empty(n, np.int32))
+        lib.gm_tc_fill(hd, *(out[k].ctypes.data for k in (
+            "s_all", "r_all", "iu_row", "iv_row", "bitmap", "s2", "r2",
+            "t2rank", "t_of", "odeg")))
+    finally:
+        lib.gm_tc_destroy(hd)
+    return dict(m=m, ncr=ncr, W=W, **out)
+
+
 def _tc_prep_numpy(src0, dst0, n, h, assume_canonical):
     """The host prep in numpy (``graphmat_tpu/ops/triangles.py:111``):
     dedup, ranks, orientation, the bitmap and the tail ranks."""
@@ -319,7 +354,9 @@ def _prep(src0, dst0, n, h=None, assume_canonical=False):
     row_s, row_r)`` of its probes."""
     if h is None:
         h = CORE_H
-    d = _tc_prep_numpy(src0, dst0, n, h, assume_canonical)
+    d = _tc_prep_native(src0, dst0, n, h, assume_canonical)
+    if d is None:
+        d = _tc_prep_numpy(src0, dst0, n, h, assume_canonical)
     t_of = d["t_of"]
     s2, r2 = d["s2"], d["r2"]
     probe = t_of[r2] > 0           # t_of[s2] > 0 by construction
@@ -649,8 +686,8 @@ def count_triangles_bucketed(src0, dst0, n, n_pad=None, h=None,
     that device, attributing each triangle to its degree-minimum vertex,
     and ``total`` an exact Python int.
     ``impl="device"`` (the default) preps on the device;
-    ``impl="host"`` preps in numpy on the host (the JAX package's native
-    prep is not ported; see the module docstring)."""
+    ``impl="host"`` preps on the host, natively (see the module
+    docstring)."""
     if n_pad is None:
         n_pad = n
     dev = _device(src0)

@@ -19,7 +19,7 @@ from typing import Callable
 
 import torch
 
-from ..core.graph_ops import _reduce_leaf
+from ..core.graph_ops import reduce_tree
 from ..core.tree import tree_map
 from .dist_graph import DistGraph
 from .dist_runtime import fold_tiles, map_tiles
@@ -44,14 +44,12 @@ def apply_reduce_all_vertices(graph: DistGraph, map_fn: Callable,
                               reduce="sum"):
     """The reduce of ``map_fn(vp)`` over valid vertices, as host values on
     every process; ``reduce`` as in
-    :func:`graphmat_tpu_torch.core.graph_ops.apply_reduce_all_vertices`.
-    The mapped segments are gathered, then reduced as on one device."""
+    :func:`graphmat_tpu_torch.core.graph_ops.apply_reduce_all_vertices`
+    (a generic Monoid included).  The mapped segments are gathered, then
+    reduced as on one device."""
     mapped = [map_fn(vp) for vp in graph.vp]
     full = fold_tiles(graph._full, mapped)
-    mask = graph._full(graph.valid_vertex)
-    if isinstance(reduce, dict):
-        return {k: _reduce_leaf(full[k], mask, r) for k, r in reduce.items()}
-    return tree_map(lambda leaf: _reduce_leaf(leaf, mask, reduce), full)
+    return reduce_tree(full, graph._full(graph.valid_vertex), reduce)
 
 
 def apply_to_all_edges(graph: DistGraph, fn: Callable) -> None:

@@ -185,7 +185,7 @@ def test_failed_native_build_raises_and_names_the_numpy_path(
     import graphmat_tpu_torch.native as nat
     bad = tmp_path / "bad.cpp"
     bad.write_text("this is not C++\n")
-    monkeypatch.setattr(nat, "SOURCE", bad)
+    monkeypatch.setattr(nat, "SOURCES", (bad,))
     monkeypatch.setattr(nat, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="native=False"):
         nat.build()

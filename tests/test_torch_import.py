@@ -28,6 +28,14 @@ def test_import_loads_no_jax():
             "import graphmat_tpu_torch.utils.reference_rng\n"
             "import graphmat_tpu_torch.io.converter\n"
             "import graphmat_tpu_torch.native\n"
+            "import graphmat_tpu_torch.graft_entry\n"
+            "import graphmat_tpu_torch.utils.timing\n"
+            "import graphmat_tpu_torch.utils.debug\n"
+            "import graphmat_tpu_torch.utils.logging\n"
+            "import graphmat_tpu_torch.ops.triangles\n"
+            "import graphmat_tpu_torch.parallel.dist_graph_ops\n"
+            "from graphmat_tpu_torch.io.edgelist import _parse_text_native\n"
+            "_parse_text_native(b'1 2 3\\n', True, 'int32')\n"
             "from graphmat_tpu_torch import read_mtx\n"
             "from graphmat_tpu_torch.utils.reference_rng import "
             "glibc_square_mapping\n"

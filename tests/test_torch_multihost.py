@@ -2,7 +2,8 @@
 ``mpirun -np 4``), started once for the file by the environment
 ``torchrun`` sets, against a ``LocalMesh`` of 2x2 CPU tiles in this
 process on the same edges: PageRank (1e-6: float32 sums, the tiles'
-partials reduced in another order), BFS (exact), SGD (1e-6), the
+partials reduced in another order), BFS (exact), a generic ⊕ (min-plus
+SSSP and a gcd map-reduce, exact), SGD (1e-6), the
 rank-strided ingest and its all-gather, the CLI's ``build_graph`` under
 ``GRAPHMAT_MESH=2x2``, and the sharded checkpoints the ranks wrote,
 restored here onto other meshes.
@@ -104,6 +105,19 @@ def test_bfs_equals_local_mesh(ranks):
     np.testing.assert_array_equal(out["bfs_depth"], d)
     np.testing.assert_array_equal(out["bfs_parent"], p)
     assert int(out["bfs_iters"]) == it
+
+
+def test_generic_monoid_equals_local_mesh(ranks):
+    """A generic ⊕ on the ProcessMesh (min-plus SSSP, a gcd map-reduce)
+    gives the LocalMesh's results exactly, and the kernel route's
+    distances (BFS depths: every weight is 1)."""
+    from torch_multihost_worker import run_generic
+    out, _, e = ranks
+    it, dist, gcd = run_generic(_local(e, build_in_edges=False))
+    assert int(out["generic_iters"]) == it
+    np.testing.assert_array_equal(out["generic_dist"], dist)
+    np.testing.assert_array_equal(out["generic_dist"], out["bfs_depth"])
+    assert int(out["generic_gcd"]) == int(gcd) == 6
 
 
 def test_sgd_equals_local_mesh(ranks):

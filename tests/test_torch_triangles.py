@@ -4,7 +4,8 @@ device prep's edge planes, stats vector and group shapes too, and the
 host prep's metadata), the plain versions of the two kernels (T1, the
 core count; T2, the tail count) against brute-force numpy counts, and
 ``run_triangle_counting`` on its three routes, its CLI and the golden
-fixture.  The JAX side runs XLA only (no Pallas kernel reaches a
+fixture; the native host prep (``native/tc_prep.cpp``) against the numpy
+prep and the JAX package's native prep.  The JAX side runs XLA only (no Pallas kernel reaches a
 triangle count).  Counts are integers: every comparison is exact.
 """
 
@@ -21,7 +22,7 @@ import graphmat_tpu as gj
 from graphmat_tpu.apps import triangle_counting as jtc
 from graphmat_tpu.io.transforms import convert_to_upper_triangular
 from graphmat_tpu.ops import triangles as jtri
-from graphmat_tpu.utils.generators import (random_edgelist,
+from graphmat_tpu.utils.generators import (random_edgelist, rmat_edgelist,
                                            upper_triangular_edgelist)
 
 import graphmat_tpu_torch as gt
@@ -154,6 +155,84 @@ def test_host_prep_matches_jax(name):
         np.testing.assert_array_equal(got[k], want[k])
     for mat in host["mats"]:   # T2 searches sorted lists
         assert (np.diff(mat.astype(np.int64), axis=1) >= 0).all()
+
+
+def _native_case(graph, canon):
+    """(s, r, n) 0-based: RMAT-10 or RMAT-12 (duplicates and both
+    orientations), or the golden fixture; canonical pairs in a seeded
+    order with ``canon``."""
+    if graph == "golden":
+        e = gj.load_edgelist(fixture("2_10_upper_triangle.bin.mtx"))
+    else:
+        e = rmat_edgelist(int(graph[4:]), 16, seed=8, dedup=False)
+    s, r = e.src.astype(np.int64) - 1, e.dst.astype(np.int64) - 1
+    n = max(e.m, e.n)
+    if canon:
+        s, r = _canonical(s, r, n)
+        order = np.random.default_rng(2).permutation(len(s))
+        s, r = s[order], r[order]
+    return s, r, n
+
+
+_EDGE_ROWS = (("s_all", "r_all", "iu_row", "iv_row"), ("s2", "r2"))
+
+
+def _by_edge(d):
+    """The prep's per-edge arrays in (sender, receiver) order, and each
+    tail entry's rank counted again in that order: its form that does not
+    depend on the order of a sender's edges."""
+    out = dict(d)
+    for cols in _EDGE_ROWS:
+        order = np.lexsort((d[cols[1]], d[cols[0]]))
+        for c in cols:
+            out[c] = d[c][order]
+    s2 = out["s2"]
+    first = np.r_[0, np.flatnonzero(s2[1:] != s2[:-1]) + 1]
+    start = np.repeat(first, np.diff(np.r_[first, len(s2)]))
+    out["t2rank"] = (np.arange(len(s2)) - start).astype(np.int32)
+    return out
+
+
+@pytest.mark.parametrize("h", [64, ttri.CORE_H])
+@pytest.mark.parametrize("canon", [False, True])
+@pytest.mark.parametrize("graph", ["rmat10", "rmat12", "golden"])
+def test_native_host_prep_matches_numpy_and_jax(graph, canon, h):
+    """The port's gm_tc_* (``native/tc_prep.cpp``) gives the numpy prep's
+    arrays, array for array, and the JAX package's native prep's: array
+    for array from raw edges; from canonical pairs, where the JAX copy
+    orders a sender's edges as its threads finish, once each sender's
+    edges are in (sender, receiver) order."""
+    s, r, n = _native_case(graph, canon)
+    got = ttri._tc_prep_native(s, r, n, h, canon)
+    want = ttri._tc_prep_numpy(s, r, n, h, canon)
+    jax_native = jtri._tc_prep_native(s, r, n, h, canon)
+    assert got.keys() == want.keys() == jax_native.keys()
+    assert got["m"] > 0 and got["ncr"] > 0
+    assert (len(got["s2"]) > 0) == (h < n)   # tail lists below the core
+    mine = got
+    if canon:
+        mine, jax_native = _by_edge(got), _by_edge(jax_native)
+    for k in want:
+        np.testing.assert_array_equal(np.asarray(got[k]),
+                                      np.asarray(want[k]), err_msg=k)
+        np.testing.assert_array_equal(np.asarray(mine[k]),
+                                      np.asarray(jax_native[k]), err_msg=k)
+
+
+def test_host_route_preps_natively(monkeypatch):
+    """``impl="host"`` takes the native prep; the numpy prep only for an
+    empty edge list."""
+    s, r, n = _native_case("rmat10", False)
+    want = ttri.count_triangles_bucketed(torch.as_tensor(s),
+                                         torch.as_tensor(r), n)[1]
+
+    def no_numpy(*a, **k):
+        raise AssertionError("the numpy prep ran")
+    monkeypatch.setattr(ttri, "_tc_prep_numpy", no_numpy)
+    got = ttri.count_triangles_bucketed(torch.as_tensor(s),
+                                        torch.as_tensor(r), n, impl="host")
+    assert got[1] == want > 0
+    assert ttri._tc_prep_native(s[:0], r[:0], n, 64, False) is None
 
 
 def test_kernel_args_give_the_count():

@@ -15,6 +15,27 @@ import sys
 import numpy as np
 
 
+def run_generic(g):
+    """SSSP from vertex 1 with its min as a generic Monoid, and the gcd of
+    6 * (distance + 1), both over ``g``: (steps, distances, gcd)."""
+    import torch
+    from graphmat_tpu_torch.apps.sssp import SSSPProgram, init_sssp_graph
+    from graphmat_tpu_torch.core.runtime import engine_for
+    from graphmat_tpu_torch.core.types import Monoid
+    from graphmat_tpu_torch.parallel.dist_graph_ops import \
+        apply_reduce_all_vertices
+
+    class GenericSSSP(SSSPProgram):
+        reduce = Monoid("generic", torch.minimum,
+                        lambda dt: torch.iinfo(dt).max)
+    init_sssp_graph(g, 1)
+    it = engine_for(GenericSSSP(), g).run()
+    gcd = apply_reduce_all_vertices(
+        g, lambda vp: (vp["distance"].clamp(max=999) + 1) * 6,
+        Monoid("generic", torch.gcd, lambda dt: 0))
+    return it, g.vp_numpy()["distance"], gcd
+
+
 def main() -> int:
     prefix, ratings, outdir = sys.argv[1:4]
     import graphmat_tpu_torch as gt
@@ -56,6 +77,11 @@ def main() -> int:
 
     gb = DistGraph(e, mesh, seg_align=8, build_in_edges=False)
     out["bfs_depth"], out["bfs_parent"], out["bfs_iters"] = run_bfs(gb, 1)
+
+    # a generic ⊕: min-plus, its partials folded after one all_to_all
+    # along 'c', and a gcd map-reduce
+    out["generic_iters"], out["generic_dist"], out["generic_gcd"] = \
+        run_generic(gb)
 
     er = gt.load_edgelist(ratings)
     gs = DistGraph(er, mesh, seg_align=8)
