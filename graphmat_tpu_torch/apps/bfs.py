@@ -30,6 +30,7 @@ from ..core.runtime import engine_for
 from ..core.types import Activity, Direction, ANY, UNTIL_CONVERGENCE
 from ..io.edgelist import EdgeList
 from ..ops.spmv2u import KEY_BIAS, KEY_SPAN
+from ..utils.timing import traced
 
 __all__ = ["BFSProgram", "BFSFastProgram", "run_bfs", "run_bfs_fast",
            "build_bfs_shortcuts", "init_bfs_graph", "init_bfs_fast_graph",
@@ -84,6 +85,7 @@ class BFSProgram(GraphProgram):
             uses_edge_value=False)
 
 
+@traced("app.init")
 def init_bfs_graph(graph: Graph, source1: int) -> None:
     """Ids, infinite depths, then the 1-based source at depth 0."""
     graph.init_vertexproperty(
@@ -96,6 +98,7 @@ def init_bfs_graph(graph: Graph, source1: int) -> None:
     graph.set_active(source1)
 
 
+@traced("app.bfs")
 def run_bfs(graph: Graph, source1: int,
             iterations: int = UNTIL_CONVERGENCE):
     """Returns ``(depth[n], parent[n], niter)`` as numpy in original

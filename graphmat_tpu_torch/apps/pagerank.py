@@ -23,6 +23,7 @@ from ..core.graph import Graph
 from ..core.program import GraphProgram, Semiring
 from ..core.runtime import engine_for
 from ..core.types import Activity, Direction, SUM, UNTIL_CONVERGENCE
+from ..utils.timing import traced
 
 __all__ = ["DegreeProgram", "PageRankProgram", "init_pagerank_graph",
            "run_pagerank"]
@@ -97,6 +98,7 @@ class PageRankProgram(GraphProgram):
             uses_edge_value=False)
 
 
+@traced("app.init")
 def init_pagerank_graph(graph: Graph, dtype=torch.float32) -> None:
     """PR() default ctor state: pagerank=0.3, degree=0
     (``src/PageRank.cpp:39-42``)."""
@@ -106,6 +108,7 @@ def init_pagerank_graph(graph: Graph, dtype=torch.float32) -> None:
     )
 
 
+@traced("app.pagerank")
 def run_pagerank(graph: Graph, alpha: float = 0.3,
                  iterations: int = UNTIL_CONVERGENCE, dtype=torch.float32):
     """Degree pass, then PageRank to convergence (or ``iterations``).

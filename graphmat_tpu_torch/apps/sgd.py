@@ -31,6 +31,7 @@ from ..core.runtime import engine_for
 from ..core.types import Activity, Direction, SUM
 from ..ops.spmv_vec2 import VEC_PROCESS_OPS
 from ..utils.reference_rng import rand_r_uniform_np
+from ..utils.timing import traced
 
 __all__ = ["SGDProgram", "RMSEProgram", "run_sgd", "init_sgd_graph",
            "rmse_per_edge"]
@@ -115,6 +116,7 @@ class RMSEProgram(GraphProgram):
         return out
 
 
+@traced("app.init")
 def init_sgd_graph(graph: Graph, k: int = 20, dtype=torch.float32) -> None:
     """Reference init: vertex i (1-based) draws k uniforms via rand_r(i),
     on the host."""
@@ -124,6 +126,7 @@ def init_sgd_graph(graph: Graph, k: int = 20, dtype=torch.float32) -> None:
     graph.init_vertexproperty(lv=lv, sqerr=np.array(0, np_dtype))
 
 
+@traced("sgd.rmse")
 def rmse_per_edge(graph: Graph, dtype=torch.float32, k: int = 20) -> float:
     """sqrt(Σ sqerr / nnz), the reference's printed metric; the vertex
     sum runs on the host in numpy, as in the JAX package."""
@@ -133,6 +136,7 @@ def rmse_per_edge(graph: Graph, dtype=torch.float32, k: int = 20) -> float:
     return float(np.sqrt(err / graph.nnz))
 
 
+@traced("app.sgd")
 def run_sgd(graph: Graph, k: int = 20, lambda_: float = 0.001,
             step: float = 3.5e-7, iterations: int = 10, dtype=torch.float32):
     """The reference flow (``src/SGD.cpp:160-220``): init, RMSE,

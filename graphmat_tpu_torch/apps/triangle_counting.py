@@ -32,6 +32,7 @@ from ..core.types import Activity, Direction, SUM
 from ..ops.neighbors import (collect_neighbors, intersect_sorted_counts,
                              max_degree)
 from ..ops.triangles import count_triangles_bucketed
+from ..utils.timing import span, traced
 
 __all__ = ["CountTrianglesProgram", "run_triangle_counting"]
 
@@ -59,6 +60,7 @@ class CountTrianglesProgram(GraphProgram):
         return old_vp["triangles"] != new_vp["triangles"]
 
 
+@traced("app.tc")
 def run_triangle_counting(graph: Graph, max_degree_pad: int | None = None,
                           method: str = "auto"):
     """Returns ``(triangles[n], total)``, the counts in original vertex
@@ -80,19 +82,21 @@ def run_triangle_counting(graph: Graph, max_degree_pad: int | None = None,
                   else "bucketed")
     if method == "bucketed":
         c = graph.csr("dst")
-        tri, total = count_triangles_bucketed(c.col, c.row, graph.n,
-                                              n_pad=graph.n_pad)
+        with span("tc.count"):
+            tri, total = count_triangles_bucketed(c.col, c.row, graph.n,
+                                                  n_pad=graph.n_pad)
         graph.init_vertexproperty(triangles=np.int32(0))
         graph.vp = {**graph.vp, "triangles": tri}
         return graph.vp_numpy()["triangles"], total
     if method != "engine":
         raise ValueError(f"method={method!r}: use 'auto', 'engine' or "
                          "'bucketed'")
-    neighbors = collect_neighbors(graph, receiver="src",
-                                  pad_to=max_degree_pad)
-    graph.init_vertexproperty(triangles=np.int32(0))
-    graph.vp = {**graph.vp, "neighbors": neighbors}
-    engine_for(CountTrianglesProgram(), graph).run(iterations=1)
+    with span("tc.count"):
+        neighbors = collect_neighbors(graph, receiver="src",
+                                      pad_to=max_degree_pad)
+        graph.init_vertexproperty(triangles=np.int32(0))
+        graph.vp = {**graph.vp, "neighbors": neighbors}
+        engine_for(CountTrianglesProgram(), graph).run(iterations=1)
     tri = graph.vp_numpy()["triangles"]
     return tri, int(tri.sum())
 

@@ -30,6 +30,7 @@ import torch
 from ..io.edgelist import EdgeList, edgelist_from_arrays
 from ..ops.compact import compact_auto, divert_stragglers, pad_positions
 from ..utils.debug import debug_enabled, validate_csr, validate_plan
+from ..utils.timing import NULL_SPAN, copied, recording, span
 
 __all__ = ["Graph", "CSR", "round_up"]
 
@@ -109,6 +110,22 @@ def _graph_device(device) -> torch.device:
             "device='cuda'; pass device=\"cpu\" to build the graph on the "
             "CPU")
     return dev
+
+
+def _upload(values):
+    """The ``graph.upload`` span around a copy of ``values`` to the graph,
+    with the host arrays among them (numpy arrays and scalars, CPU
+    tensors) counted as ``copy.htod``, whatever the graph's device; the
+    shared null context when the recorder is off or nothing is on the
+    host."""
+    if not recording():
+        return NULL_SPAN
+    host = [v for v in values if isinstance(v, (np.ndarray, np.generic))
+            or (isinstance(v, torch.Tensor) and v.device.type == "cpu")]
+    if not host:
+        return NULL_SPAN
+    copied("htod", *host)
+    return span("graph.upload")
 
 
 class _VpRef:
@@ -327,20 +344,22 @@ class Graph:
         """Initialize the vertex properties.  Each field is a scalar
         (broadcast) or an array of length ``n`` in ORIGINAL vertex order."""
         vp = {}
-        for name, value in fields.items():
-            if isinstance(value, np.ndarray):
-                value = value.copy()   # torch takes no read-only arrays
-            arr = torch.as_tensor(value, device=self.device)
-            if arr.dim() == 0 or arr.shape[0] != self.n:
-                full = arr.expand((self.n_pad,) + tuple(arr.shape)).clone()
-            else:
-                full = torch.zeros((self.n_pad,) + tuple(arr.shape[1:]),
-                                   dtype=arr.dtype, device=self.device)
-                if self.perm is None:
-                    full[: self.n] = arr
+        with _upload(fields.values()):
+            for name, value in fields.items():
+                if isinstance(value, np.ndarray):
+                    value = value.copy()   # torch takes no read-only arrays
+                arr = torch.as_tensor(value, device=self.device)
+                if arr.dim() == 0 or arr.shape[0] != self.n:
+                    full = arr.expand((self.n_pad,)
+                                      + tuple(arr.shape)).clone()
                 else:
-                    full[self.perm] = arr
-            vp[name] = full
+                    full = torch.zeros((self.n_pad,) + tuple(arr.shape[1:]),
+                                       dtype=arr.dtype, device=self.device)
+                    if self.perm is None:
+                        full[: self.n] = arr
+                    else:
+                        full[self.perm] = arr
+                vp[name] = full
         self.vp = vp
 
     def set_all_vertexproperty(self, **fields) -> None:
@@ -368,7 +387,10 @@ class Graph:
     def get_vertexproperty(self, vid1: int) -> Dict[str, Any]:
         """One vertex's properties (1-based id), as numpy values."""
         i = self._idx(vid1)
-        return {k: v[i].cpu().numpy() for k, v in self.vp.items()}
+        with span("graph.readback"):
+            out = {k: v[i].cpu().numpy() for k, v in self.vp.items()}
+            copied("dtoh", *out.values())
+        return out
 
     def set_vertexproperty(self, vid1: int, **fields) -> None:
         """Set fields of one vertex (1-based id).  The changed fields are
@@ -382,17 +404,28 @@ class Graph:
 
     def vp_numpy(self) -> Dict[str, np.ndarray]:
         """Host copies of the vertex properties in ORIGINAL order."""
-        if self.perm is None:
-            return {k: v[: self.n].cpu().numpy() for k, v in self.vp.items()}
-        return {k: v[self.perm].cpu().numpy() for k, v in self.vp.items()}
+        with span("graph.readback"):
+            if self.perm is None:
+                out = {k: v[: self.n].cpu().numpy()
+                       for k, v in self.vp.items()}
+            else:
+                out = {k: v[self.perm].cpu().numpy()
+                       for k, v in self.vp.items()}
+            copied("dtoh", *out.values())
+        return out
 
     # ------------------------------------------------------------- active
 
     def active_numpy(self) -> np.ndarray:
         """The frontier as a host bool[n] in ORIGINAL order."""
-        a = self.active.cpu().numpy()
-        return a[self.perm.cpu().numpy()] if self.perm is not None \
-            else a[: self.n]
+        with span("graph.readback"):
+            a = self.active.cpu().numpy()
+            if self.perm is None:
+                copied("dtoh", a)
+                return a[: self.n]
+            perm = self.perm.cpu().numpy()
+            copied("dtoh", a, perm)
+            return a[perm]
 
     def set_all_active(self) -> None:
         self.active = self.valid_vertex.clone()
@@ -411,8 +444,10 @@ class Graph:
 
     def set_active_mask(self, mask) -> None:
         """Set the frontier from a bool[n] mask in ORIGINAL vertex order."""
-        mask = torch.as_tensor(np.array(mask, bool) if not isinstance(
-            mask, torch.Tensor) else mask, device=self.device).bool()
+        if not isinstance(mask, torch.Tensor):
+            mask = np.array(mask, bool)
+        with _upload((mask,)):
+            mask = torch.as_tensor(mask, device=self.device).bool()
         if mask.shape != (self.n,):
             raise ValueError(f"mask has {mask.shape[0]} entries, graph has "
                              f"{self.n} vertices")

@@ -32,6 +32,13 @@ of runtime.py:278-352, after ``include/GraphMatRuntime.h:94-279``):
 
 The loop is a Python loop.  Run to convergence, it reads one bool to the
 host per iteration; run for a fixed count, it reads nothing.
+
+The one-device :class:`Engine` records the spans of
+:mod:`graphmat_tpu_torch.utils.timing` (the reference's ``__TIMING``
+phases, ``GraphMatRuntime.h:125-248``): ``engine.run``, one
+``engine.step`` an iteration with its ``engine.send``, ``engine.spmv``
+and ``engine.apply``, and ``engine.converge`` around the read; and the
+counters ``engine.steps`` and ``copy.dtoh`` (the read).
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ from ..ops.spmv2 import spmv_push
 from ..ops.spmv2u import IDENTITY, spmv
 from ..ops.spmv_vec import spmv_vec_sparse
 from ..ops.spmv_vec2 import spmv_vec
+from ..utils.timing import copied, count, span, traced
 from .graph import Graph
 from .program import GraphProgram, IterationContext, Semiring, VecSemiring
 from .tree import tree_map
@@ -120,6 +128,14 @@ def _on_device(state, device):
     package, whose Engine hands it back as numpy) moved onto ``device``."""
     return tree_map(lambda a: torch.as_tensor(np.array(a), device=device)
                     if isinstance(a, np.ndarray) else a, state)
+
+
+def _read_changed(any_changed) -> bool:
+    """The convergence read: a step's one copy to the host."""
+    with span("engine.converge"):
+        changed = bool(any_changed)
+        copied("dtoh", any_changed)
+    return changed
 
 
 def _combine_tree(monoid, a, b):
@@ -343,36 +359,46 @@ class Engine(Routing):
         g = self.graph
         return g.sender_csr(recv) if sender_major else g.csr(recv)
 
+    @traced("engine.step")
     def _step(self, it: int, state, vp, active):
         """One iteration; returns (state, vp, active, any_changed) with
         ``any_changed`` a bool tensor left on the device."""
         prog = self.program
         valid = self.graph.valid_vertex
-        msg, sent = self._send(state, vp, active, valid)
-        sent_u8 = None if self._dense else sent.to(torch.uint8)
-        if self._vec is not None:
-            x, vp_enc, extra = self._vec_operands(state, msg, sent, vp)
-            y, cnt = self._vec_tile(self._csr, x, sent_u8, vp_enc, extra)
-            reduced = self._vec.decode(y)
-            got = self._structural_got(self._csr) if cnt is None else cnt > 0
-        elif self._semiring is not None:
-            kind = self._semiring.reduce_kind
-            y, cnt = self._kernel_tile(
-                self._csr, self._scalar_operand(msg, sent), sent_u8,
-                self._receiver_final(state, vp, it, valid))
-            reduced = self._semiring.decode(y)
-            got = (cnt > 0 if self._want_got else
-                   self._structural_got(self._csr) if kind == "sum"
-                   else y != IDENTITY[kind])
-        else:
-            reduced, got = self._segment_tile(
-                self._csr, state, msg, sent,
-                vp if prog.process_requires_vertexprop else None,
-                self.graph.n_pad, self._msg_width)
-        vp_new, ch, active_new = self._apply(state, reduced, vp, got, valid)
-        state = prog.do_every_iteration(state, vp_new, it, self.ctx)
-        return state, vp_new, active_new, ch.any()
+        count("engine.steps")
+        with span("engine.send"):
+            msg, sent = self._send(state, vp, active, valid)
+            sent_u8 = None if self._dense else sent.to(torch.uint8)
+        with span("engine.spmv"):
+            if self._vec is not None:
+                x, vp_enc, extra = self._vec_operands(state, msg, sent, vp)
+                y, cnt = self._vec_tile(self._csr, x, sent_u8, vp_enc,
+                                        extra)
+                reduced = self._vec.decode(y)
+                got = (self._structural_got(self._csr) if cnt is None
+                       else cnt > 0)
+            elif self._semiring is not None:
+                kind = self._semiring.reduce_kind
+                y, cnt = self._kernel_tile(
+                    self._csr, self._scalar_operand(msg, sent), sent_u8,
+                    self._receiver_final(state, vp, it, valid))
+                reduced = self._semiring.decode(y)
+                got = (cnt > 0 if self._want_got else
+                       self._structural_got(self._csr) if kind == "sum"
+                       else y != IDENTITY[kind])
+            else:
+                reduced, got = self._segment_tile(
+                    self._csr, state, msg, sent,
+                    vp if prog.process_requires_vertexprop else None,
+                    self.graph.n_pad, self._msg_width)
+        with span("engine.apply"):
+            vp_new, ch, active_new = self._apply(state, reduced, vp, got,
+                                                 valid)
+            state = prog.do_every_iteration(state, vp_new, it, self.ctx)
+            any_changed = ch.any()
+        return state, vp_new, active_new, any_changed
 
+    @traced("engine.run")
     def run(self, iterations: int = UNTIL_CONVERGENCE,
             max_iterations: int = 1_000_000, state: Any = None) -> int:
         """Run the program, updating ``graph.vp`` and ``graph.active``.
@@ -395,7 +421,7 @@ class Engine(Routing):
                 state, vp, active, any_changed = self._step(it, state, vp,
                                                             active)
                 it += 1
-                if not bool(any_changed):
+                if not _read_changed(any_changed):
                     break
         g.vp = vp
         g.active = active
@@ -409,7 +435,7 @@ class Engine(Routing):
                  else _on_device(state, g.device))
         state, g.vp, g.active, any_changed = self._step(0, state, g.vp,
                                                         g.active)
-        return state, not bool(any_changed)
+        return state, not _read_changed(any_changed)
 
 
 def graph_program_init(program: GraphProgram, graph: Graph) -> Engine:

@@ -71,6 +71,7 @@ import torch
 
 from . import _lib
 from .neighbors import PAD_ID
+from ..utils.timing import copied
 
 __all__ = ["count_triangles_bucketed", "core_count", "tail_count",
            "core_count_reference", "tail_count_reference",
@@ -651,6 +652,13 @@ def _kernel_args(u, v, n, h=None, canonical=False):
         yield (mats, _LADDER, *probes)
 
 
+def _total(pv, n) -> int:
+    """The exact sum of the first ``n`` counts, read to the host."""
+    total = pv[:n].sum(dtype=torch.int64)
+    copied("dtoh", total)
+    return int(total)
+
+
 def _count_triangles_devprep(u, v, n, n_pad, h, assume_canonical):
     nacc = max(n_pad, n) + 1   # bin n takes nothing: every count there is 0
     pv = torch.zeros(nacc, dtype=torch.int32, device=u.device)
@@ -660,7 +668,7 @@ def _count_triangles_devprep(u, v, n, n_pad, h, assume_canonical):
     core_count(*next(args), pv)
     for t2 in args:
         tail_count(*t2, pv)
-    return pv[:n_pad], int(pv[:n].sum(dtype=torch.int64))
+    return pv[:n_pad], _total(pv, n)
 
 
 def _device(src0):
@@ -705,4 +713,4 @@ def count_triangles_bucketed(src0, dst0, n, n_pad=None, h=None,
     hst = _prep(host(src0), host(dst0), n, h=h,
                 assume_canonical=assume_canonical)
     pv = _count_host(hst, max(n_pad, n) + 1, dev)
-    return pv[:n_pad], int(pv[:n].sum(dtype=torch.int64))
+    return pv[:n_pad], _total(pv, n)

@@ -6,6 +6,13 @@ rank, ``SpMat.h:107``), whose level comes from ``GRAPHMAT_TPU_LOG``
 (default INFO); :class:`Counters` for the numbers the reference tracks
 per iteration (frontier sizes, updated vertices, edges processed); and
 :func:`log_iteration`, the reference's per-iteration line.
+
+The tracing recorder (:mod:`graphmat_tpu_torch.utils.timing`) keeps its
+counters in a :class:`Counters`: ``engine.steps`` and the host copies
+``copy.dtoh.bytes``, ``copy.dtoh.n``, ``copy.htod.bytes``,
+``copy.htod.n``.  They count only while the recorder is on (a
+``torch.profiler`` session, or ``GRAPHMAT_TPU_TIMING=1``); off, a count
+costs one flag check.
 """
 
 from __future__ import annotations
