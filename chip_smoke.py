@@ -1151,7 +1151,7 @@ def phase_sgd(device, users, items, ratings, k=20, seed=25,
     import torch
     from graphmat_tpu_torch import Graph
     from graphmat_tpu_torch.apps.sgd import init_sgd_graph, run_sgd
-    from graphmat_tpu_torch.ops import spmv_vec2
+    from graphmat_tpu_torch.ops import rand_r, spmv_vec2
     cuda = torch.device(device).type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats()
@@ -1163,8 +1163,12 @@ def phase_sgd(device, users, items, ratings, k=20, seed=25,
     g = Graph(e, device=device, permute=False)
     sync(device)
     t_build = time.perf_counter() - t0
+    rand_r.LAUNCHES["uniform"] = 0
     init_sgd_graph(g, k)
     lv_init = g.vp["lv"][: g.n].clone()
+    if cuda and rand_r.LAUNCHES["uniform"] != 1:
+        raise AssertionError("phase 9: init_sgd_graph did not launch the "
+                             "rand_r kernel once")
 
     for op in spmv_vec2.LAUNCHES:
         spmv_vec2.LAUNCHES[op] = 0
@@ -1173,9 +1177,14 @@ def phase_sgd(device, users, items, ratings, k=20, seed=25,
     sync(device)
     t_run = time.perf_counter() - t0
     k3 = dict(spmv_vec2.LAUNCHES)
-    log(f"phase 9: launches over run_sgd: K3 {k3}")
+    krr = rand_r.LAUNCHES["uniform"]   # run_sgd draws its own init again
+    log(f"phase 9: launches over run_sgd: K3 {k3}; rand_r over the init "
+        f"and run_sgd {krr}")
     if cuda and (k3["sgd"] < 2 * iterations or k3["sgd_sqerr"] < 2):
         raise AssertionError("phase 9: the main path missed K3")
+    if cuda and krr != 2:
+        raise AssertionError("phase 9: the main path missed the rand_r "
+                             "kernel")
     peak = torch.cuda.max_memory_allocated() if cuda else None
 
     t0 = time.perf_counter()
@@ -1201,7 +1210,37 @@ def phase_sgd(device, users, items, ratings, k=20, seed=25,
         f"bitwise equal; seconds: generate {t_gen:.3f}, graph build "
         f"{t_build:.3f}, run_sgd {t_run:.3f}, oracle {t_oracle:.1f}; "
         f"peak device memory {peak}")
-    return e, g, k3, dict(build_s=t_build, run_s=t_run, peak_bytes=peak)
+    run = dict(build_s=t_build, run_s=t_run, peak_bytes=peak)
+    if cuda:
+        run["rand_r"] = dict(rand_r_timings(g.n, k, device), launches=krr)
+        log("phase 9: the rand_r draw: " + json.dumps(run["rand_r"]))
+    return e, g, k3, run
+
+
+def rand_r_timings(n, k, device, reps=3):
+    """SGD's initial factors, n x k float32: the rand_r kernel and its
+    plain version on the card (CUDA events), the host route the kernel
+    replaced (numpy draw, cast, upload; host clock, synchronised) and the
+    store bound.  Launches the kernel 52 times."""
+    import torch
+    from graphmat_tpu_torch.ops import rand_r
+    from graphmat_tpu_torch.utils.reference_rng import rand_r_uniform_np
+    seeds = np.arange(1, n + 1, dtype=np.uint32)
+    host = []
+    for _ in range(reps):
+        sync(device)
+        t0 = time.perf_counter()
+        torch.as_tensor(rand_r_uniform_np(seeds, k).astype(np.float32),
+                        device=device)
+        sync(device)
+        host.append((time.perf_counter() - t0) * 1e3)
+    return {
+        "ms": event_ms(lambda: rand_r.rand_r_uniform(
+            1, n, k, torch.float32, device), 50),
+        "plain_ms": event_ms(lambda: rand_r.rand_r_uniform_reference(
+            1, n, k, torch.float32, device), 5, warm=1),
+        "bound_ms": hbm_ms(n * k * 4),
+        "host_route_ms": statistics.median(host)}
 
 
 def nytimes_edgelist(docs, terms, entries, seed, device):
@@ -4850,6 +4889,16 @@ def main(argv=None):
             if isinstance(r, dict) and "max_abs_err" in r),
         rt["ms"], rt["plain_ms"],
         rt["bound_ms"], "bytes", None))
+    # SGD's initial factors at MovieLens-25M shape (phase 9): bitwise the
+    # numpy draw there, so no error; launches are phase 9's init and
+    # run_sgd's
+    rr = sgd_run["rand_r"]
+    kernels["kernels"].append(dict(kernel_record(
+        "rand_r", "graphmat_tpu_torch/csrc/rand_r.cu",
+        "graphmat_tpu/utils/reference_rng.py:54 (rand_r_uniform_np, numpy "
+        "on the host; no Pallas kernel)", rr["launches"], 0.0, rr["ms"],
+        rr["plain_ms"], rr["bound_ms"], "bytes", None),
+        host_route_ms=rr["host_route_ms"]))
     idle = [r["name"] for r in kernels["kernels"] if r["launches"] == 0]
     if idle:
         raise AssertionError(f"the main path launched no {idle}")

@@ -87,11 +87,13 @@ class BFSProgram(GraphProgram):
 
 @traced("app.init")
 def init_bfs_graph(graph: Graph, source1: int) -> None:
-    """Ids, infinite depths, then the 1-based source at depth 0."""
+    """Ids, infinite depths, then the 1-based source at depth 0; the ids
+    are made on the graph's device."""
     graph.init_vertexproperty(
-        depth=np.int32(INF_DEPTH),
-        parent=np.int32(-1),
-        id=np.arange(1, graph.n + 1, dtype=np.int32),
+        depth=torch.tensor(INF_DEPTH, dtype=torch.int32),
+        parent=torch.tensor(-1, dtype=torch.int32),
+        id=torch.arange(1, graph.n + 1, dtype=torch.int32,
+                        device=graph.device),
     )
     graph.set_all_inactive()
     graph.set_vertexproperty(source1, depth=0)

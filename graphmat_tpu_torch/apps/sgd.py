@@ -13,8 +13,8 @@ iteration.
 RMSE is one IN_EDGES pass of ``(rating − ⟨x, lv_r⟩)²`` (op
 ``sgd_sqerr``), summed over vertices on the host.  The init matches the
 reference and the JAX package bit for bit: vertex i's factors are
-``rand_r(seed=i)/RAND_MAX`` drawn on the host.  Defaults λ=0.001,
-step=3.5e-7, 10 iterations.
+``rand_r(seed=i)/RAND_MAX``, drawn on the graph's device.  Defaults
+λ=0.001, step=3.5e-7, 10 iterations.
 
 Run as ``python -m graphmat_tpu_torch.apps.sgd ratings.mtx``; the device
 comes from ``GRAPHMAT_PLATFORM`` (see :mod:`._cli`).
@@ -29,8 +29,8 @@ from ..core.graph import Graph
 from ..core.program import GraphProgram, VecSemiring
 from ..core.runtime import engine_for
 from ..core.types import Activity, Direction, SUM
+from ..ops.rand_r import rand_r_uniform
 from ..ops.spmv_vec2 import VEC_PROCESS_OPS
-from ..utils.reference_rng import rand_r_uniform_np
 from ..utils.timing import traced
 
 __all__ = ["SGDProgram", "RMSEProgram", "run_sgd", "init_sgd_graph",
@@ -119,11 +119,10 @@ class RMSEProgram(GraphProgram):
 @traced("app.init")
 def init_sgd_graph(graph: Graph, k: int = 20, dtype=torch.float32) -> None:
     """Reference init: vertex i (1-based) draws k uniforms via rand_r(i),
-    on the host."""
-    np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
-    seeds = np.arange(1, graph.n + 1, dtype=np.uint32)
-    lv = rand_r_uniform_np(seeds, k).astype(np_dtype)
-    graph.init_vertexproperty(lv=lv, sqerr=np.array(0, np_dtype))
+    on the graph's device (``ops/rand_r.py: rand_r_uniform``), so that no
+    array crosses from the host; ``dtype`` is float32 or float64."""
+    lv = rand_r_uniform(1, graph.n, k, dtype, graph.device)
+    graph.init_vertexproperty(lv=lv, sqerr=torch.tensor(0, dtype=dtype))
 
 
 @traced("sgd.rmse")

@@ -24,7 +24,7 @@ __all__ = ["build", "load", "check"]
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 SOURCES = ("spmv2u.cu", "compact.cu", "spmv_vec2.cu", "spmv2.cu",
-           "triangles.cu", "rmat.cu")
+           "triangles.cu", "rmat.cu", "rand_r.cu")
 BUILD_DIR = _PKG.parent / "build" / "graphmat_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -126,6 +126,8 @@ def load() -> ctypes.CDLL:
     lib.gm_rmat_keys.restype = i
     lib.gm_rmat_weights.argtypes = [p, ll, ull, i, p, p]
     lib.gm_rmat_weights.restype = i
+    lib.gm_rand_r_uniform.argtypes = [ctypes.c_uint, ll, i, i, p, p]
+    lib.gm_rand_r_uniform.restype = i
     lib.gm_error_string.argtypes = [i]
     lib.gm_error_string.restype = ctypes.c_char_p
     return lib

@@ -22,7 +22,8 @@ push's sums are K1's over the receiver CSR: bitwise K1's and the same
 over repeated launches.  T1 and T2
 (TriangleCounting's core and tail counts) equal their plain versions
 exactly, and TriangleCounting and GetNeighbors on the card their CPU
-runs.  The RMAT stream's kernels equal their plain versions bit for bit.
+runs.  The RMAT stream's kernels equal their plain versions bit for bit,
+and the rand_r draw (SGD's initial factors) the host's numpy draw.
 """
 
 import functools
@@ -411,6 +412,61 @@ def test_sgd_on_cuda_matches_cpu(cuda):
     lv_h, r0_h, r1_h = tsgd.run_sgd(g_h, k=40, step=1e-4, iterations=3)
     assert abs(r1_c - r1_h) <= 1e-6 * r1_h
     np.testing.assert_allclose(lv_c, lv_h, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("first_seed", [1, 2 ** 32 - 300])
+@pytest.mark.parametrize("k", [1, 3, 20, 40])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_rand_r_uniform_kernel_matches_numpy(cuda, dtype, k, first_seed):
+    """The rand_r draw bitwise ``rand_r_uniform_np(...).astype(...)``, one
+    launch a call: n not a multiple of the kernel's 128 rows a block; k
+    = 40 takes two column chunks; from 2^32 - 300 the seeds wrap to 0."""
+    from graphmat_tpu_torch.ops import rand_r
+    from graphmat_tpu_torch.utils.reference_rng import rand_r_uniform_np
+    n = 1000
+    np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
+    seeds = ((np.arange(n, dtype=np.uint64) + first_seed) % 2 ** 32).astype(
+        np.uint32)
+    before = rand_r.LAUNCHES["uniform"]
+    got = rand_r.rand_r_uniform(first_seed, n, k, dtype, cuda)
+    torch.cuda.synchronize()
+    assert rand_r.LAUNCHES["uniform"] == before + 1
+    assert got.dtype == dtype and got.shape == (n, k)
+    want = rand_r_uniform_np(seeds, k).astype(np_dtype)
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint8),
+                                  want.view(np.uint8))
+
+
+@pytest.mark.parametrize("permute", [False, "degree"])
+def test_init_sgd_graph_on_cuda_matches_cpu(cuda, permute):
+    """SGD's initial factors drawn on the card equal the CPU's bitwise, in
+    one launch; with the recorder on, ``Graph`` counts only the 4-byte
+    ``sqerr`` fill as copied up, and BFS's init only its two fills."""
+    from torch.profiler import ProfilerActivity, profile
+    from graphmat_tpu_torch.apps import bfs as tbfs
+    from graphmat_tpu_torch.apps import sgd as tsgd
+    from graphmat_tpu_torch.ops import rand_r
+    from graphmat_tpu_torch.utils import timing
+    g_c = _ratings_graph(cuda, permute=permute)
+    g_h = _ratings_graph("cpu", permute=permute)
+    before = rand_r.LAUNCHES["uniform"]
+    timing.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        tsgd.init_sgd_graph(g_c, 20)
+    c = timing.snapshot()["counters"]
+    assert rand_r.LAUNCHES["uniform"] == before + 1
+    assert c["copy.htod.bytes"] == 4 and c["rand_r.values"] == g_c.n * 20
+    tsgd.init_sgd_graph(g_h, 20)
+    np.testing.assert_array_equal(g_c.vp_numpy()["lv"].view(np.uint32),
+                                  g_h.vp_numpy()["lv"].view(np.uint32))
+    timing.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        tbfs.init_bfs_graph(g_c, 2)
+    assert timing.snapshot()["counters"]["copy.htod.bytes"] == 8
+    timing.reset()
+    tbfs.init_bfs_graph(g_h, 2)
+    for name, v in g_c.vp_numpy().items():
+        np.testing.assert_array_equal(v, g_h.vp_numpy()[name])
 
 
 def _bipartite_edges(ndoc, nterms, seed=0, maxcount=5):

@@ -4,8 +4,9 @@ and enters no ``record_function``; on, under a CPU ``torch.profiler``,
 each app call is one tree of well-nested spans, ``engine.step`` counts
 the iterations, the copy counters equal the bytes that crossed, the
 spans lie within 100 us of their own annotations in the exported Chrome
-trace once ``perfbench/spans.py`` places them on the trace's clock, and
-the answers equal the answers with tracing off."""
+trace once ``perfbench/spans.py`` places them on the trace's clock, the
+apps' inits hand ``Graph`` arrays made on its device, and the answers
+equal the answers with tracing off."""
 
 import json
 import types
@@ -15,9 +16,9 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from graphmat_tpu_torch.apps.bfs import run_bfs
+from graphmat_tpu_torch.apps.bfs import init_bfs_graph, run_bfs
 from graphmat_tpu_torch.apps.pagerank import run_pagerank
-from graphmat_tpu_torch.apps.sgd import run_sgd
+from graphmat_tpu_torch.apps.sgd import init_sgd_graph, run_sgd
 from graphmat_tpu_torch.apps.triangle_counting import run_triangle_counting
 from graphmat_tpu_torch.core.graph import Graph
 from graphmat_tpu_torch.utils import timing
@@ -161,6 +162,44 @@ def test_one_tree_of_spans_a_call_and_the_counts(graph, app, monkeypatch):
     timer = timing.phase_timer(snap)
     assert timer.counts == {n: names.count(n) for n in set(names)}
     assert "engine.step time = " in timer.summary() or steps == 0
+
+
+INITS = {
+    "bfs": (lambda g: init_bfs_graph(g, 1), ()),
+    "sgd": (lambda g: init_sgd_graph(g, k=5), ("rand_r.values",)),
+}
+
+
+@pytest.mark.parametrize("app", sorted(INITS))
+def test_init_makes_its_arrays_on_the_graph_device(graph, app, monkeypatch):
+    """``init_bfs_graph`` and ``init_sgd_graph`` hand ``Graph`` no numpy
+    array: the ids and the factors are made on the graph's device, the
+    fill values are 0-d tensors.  So what the recorder counts as copied up
+    is those arrays, which cross nothing, and a few scalar bytes: a CPU
+    graph's own device is the host, so ``Graph`` counts its tensors as
+    host data here, and on a card only the scalars
+    (``tests/test_torch_cuda.py``).  The draw counts its values."""
+    init, counters = INITS[app]
+    fields = []
+    init_vp = Graph.init_vertexproperty
+
+    def spy_init(self, **kw):
+        fields.append(kw)
+        return init_vp(self, **kw)
+    monkeypatch.setattr(Graph, "init_vertexproperty", spy_init)
+    with profile(activities=[ProfilerActivity.CPU]):
+        init(graph)
+    (got,) = fields
+    arrays = [v for v in got.values() if v.dim() > 0]
+    assert all(isinstance(v, torch.Tensor) for v in got.values())
+    assert arrays and all(v.device == graph.device
+                          and v.shape[0] == graph.n for v in arrays)
+    c = timing.snapshot()["counters"]
+    scalars = c["copy.htod.bytes"] - sum(v.nbytes for v in arrays)
+    assert 0 < scalars <= 16 and c["copy.htod.n"] == len(got)
+    assert {k for k in c if not k.startswith("copy.")} == set(counters)
+    if app == "sgd":
+        assert c["rand_r.values"] == graph.n * 5
 
 
 def _vp_fields(app):
