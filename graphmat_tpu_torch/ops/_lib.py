@@ -19,7 +19,7 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["build", "load", "check"]
+__all__ = ["build", "load", "check", "launch"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -138,3 +138,18 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.gm_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def launch(entry: str, device, *args) -> None:
+    """Call the library's ``entry`` for tensors on ``device`` with that
+    card current, its current stream appended as the last argument, and
+    raise on a CUDA error.  Every kernel wrapper launches through here:
+    the stream, the launch and each ``cudaGetDevice`` inside an entry then
+    name the tensors' card, whichever card the calling thread had current
+    (a tile of a mesh on cuda:1 driven from a thread on cuda:0)."""
+    import torch
+    lib = load()
+    with torch.cuda.device(device):
+        rc = getattr(lib, entry)(
+            *args, torch.cuda.current_stream(device).cuda_stream)
+    check(lib, rc, entry)

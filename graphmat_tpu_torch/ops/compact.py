@@ -174,12 +174,10 @@ def aux_gather(x: torch.Tensor, src_of_pos: torch.Tensor,
     n = src_of_pos.numel()
     if n == 0:
         return res
-    lib = _lib.load()
-    rc = lib.gm_aux_gather(
+    _lib.launch(
+        "gm_aux_gather", x.device,
         x.data_ptr(), None if sent is None else sent.data_ptr(),
         src_of_pos.data_ptr(), out.data_ptr(),
-        None if sent_out is None else sent_out.data_ptr(), n,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _lib.check(lib, rc, "aux_gather")
+        None if sent_out is None else sent_out.data_ptr(), n)
     LAUNCHES["aux_gather"] += 1
     return res

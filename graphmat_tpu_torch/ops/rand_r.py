@@ -59,10 +59,7 @@ def rand_r_uniform(first_seed: int, n: int, k: int, dtype,
         raise RuntimeError(f"rand_r_uniform has no kernel for {device}")
     out = torch.empty((n, k), dtype=dtype, device=device)
     if n * k:
-        lib = _lib.load()
-        rc = lib.gm_rand_r_uniform(
-            first_seed & 0xFFFFFFFF, n, k, int(dtype == torch.float64),
-            out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
-        _lib.check(lib, rc, "rand_r_uniform")
+        _lib.launch("gm_rand_r_uniform", device, first_seed & 0xFFFFFFFF,
+                    n, k, int(dtype == torch.float64), out.data_ptr())
         LAUNCHES["uniform"] += 1
     return out

@@ -97,12 +97,9 @@ def rmat_keys(scale: int, nnz: int, a: float, b: float, c: float,
     keys = torch.empty(nnz, dtype=torch.int64, device=device)
     if nnz == 0:
         return keys
-    lib = _lib.load()
     ab, c_norm, a_norm = _thresholds(a, b, c)
-    rc = lib.gm_rmat_keys(scale, nnz, ab, c_norm, a_norm, seed & _M64,
-                          keys.data_ptr(),
-                          torch.cuda.current_stream(device).cuda_stream)
-    _lib.check(lib, rc, "rmat_keys")
+    _lib.launch("gm_rmat_keys", device, scale, nnz, ab, c_norm, a_norm,
+                seed & _M64, keys.data_ptr())
     LAUNCHES["keys"] += 1
     return keys
 
@@ -135,12 +132,9 @@ def rmat_weights(keys: torch.Tensor, seed: int,
     val = torch.empty(keys.numel(), dtype=torch.int32, device=keys.device)
     if keys.numel() == 0:
         return val
-    lib = _lib.load()
-    rc = lib.gm_rmat_weights(keys.data_ptr(), keys.numel(), seed & _M64,
-                             int(weight_range), val.data_ptr(),
-                             torch.cuda.current_stream(
-                                 keys.device).cuda_stream)
-    _lib.check(lib, rc, "rmat_weights")
+    _lib.launch("gm_rmat_weights", keys.device, keys.data_ptr(),
+                keys.numel(), seed & _M64, int(weight_range),
+                val.data_ptr())
     LAUNCHES["weights"] += 1
     return val
 

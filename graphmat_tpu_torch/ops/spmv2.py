@@ -167,13 +167,11 @@ def push_mark(rowptr, col, sent, n_recv, src=None, plan=None):
         return mark
     if plan is None:
         plan = push_plan(rowptr)
-    lib = _lib.load()
-    rc = lib.gm_push_mark(
+    _lib.launch(
+        "gm_push_mark", sent.device,
         rowptr.data_ptr(), col.data_ptr(), sent.data_ptr(), mark.data_ptr(),
         plan.extra_tile.data_ptr(), plan.extra_k.data_ptr(),
-        plan.extra_tile.numel(), sent.numel(),
-        torch.cuda.current_stream(sent.device).cuda_stream)
-    _lib.check(lib, rc, "push_mark")
+        plan.extra_tile.numel(), sent.numel())
     LAUNCHES["mark"] += 1
     return mark
 
@@ -245,16 +243,14 @@ def spmv_push_csr(rowptr, col, x, n_recv, reduce_kind, process_op, val=None,
     if plan is None:
         plan = push_plan(rowptr)
     mode = "dense" if sent is None else "sparse"
-    lib = _lib.load()
-    rc = lib.gm_spmv_push(
+    _lib.launch(
+        "gm_spmv_push", x.device,
         rowptr.data_ptr(), col.data_ptr(),
         val.data_ptr() if process_op != "x" else None, x.data_ptr(),
         sent.data_ptr() if sent is not None else None, y.data_ptr(),
         plan.extra_tile.data_ptr(), plan.extra_k.data_ptr(),
         plan.extra_tile.numel(), x.numel(), _REDUCE_CODE[reduce_kind],
-        _PROCESS_CODE[process_op], {"dense": 0, "sparse": 1}[mode], bits,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _lib.check(lib, rc, "spmv_push")
+        _PROCESS_CODE[process_op], {"dense": 0, "sparse": 1}[mode], bits)
     LAUNCHES[mode] += 1
     return y
 

@@ -266,8 +266,8 @@ def spmv_csr(rowptr, col, x, reduce_kind, process_op, val=None, sent=None,
     part = torch.empty(n_chunks, dtype=torch.float32, device=x.device)
     part_cnt = (torch.empty(n_chunks, dtype=torch.int32, device=x.device)
                 if want_got else None)
-    lib = _lib.load()
-    rc = lib.gm_spmv(
+    _lib.launch(
+        "gm_spmv", x.device,
         rowptr.data_ptr(), col.data_ptr(),
         val.data_ptr() if process_op != "x" else None, x.data_ptr(),
         x_aux.data_ptr() if x_aux is not None else None,
@@ -281,9 +281,7 @@ def spmv_csr(rowptr, col, x, reduce_kind, process_op, val=None, sent=None,
         part_cnt.data_ptr() if want_got else None, *plan.counts, n_chunks,
         plan.long_rows.numel(), x.numel(),
         _REDUCE_CODE[reduce_kind], _PROCESS_CODE[process_op],
-        {"dense": 0, "sparse": 1, "sparse_got": 2}[mode], bits,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _lib.check(lib, rc, "spmv")
+        {"dense": 0, "sparse": 1, "sparse_got": 2}[mode], bits)
     LAUNCHES[mode + ("_final" if recv_final is not None else "")] += 1
     return (y, got) if want_got else y
 

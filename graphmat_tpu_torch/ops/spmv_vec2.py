@@ -223,16 +223,14 @@ def launch(rowptr, col, val, x, op, vp, extra, params, sent=None):
     if n_rows > 0:
         if k % 4 and op != "lda_init":
             x = torch.nn.functional.pad(x, (0, -k % 4))
-        lib = _lib.load()
-        rc = lib.gm_spmv_vec2(
+        _lib.launch(
+            "gm_spmv_vec2", x.device,
             rowptr.data_ptr(), col.data_ptr(), val.data_ptr(), x.data_ptr(),
             vp.data_ptr() if op in _NEEDS_VP else None,
             extra.data_ptr() if extra is not None else None,
             sent.data_ptr() if sent is not None else None, y.data_ptr(),
             got.data_ptr() if got is not None else None, n_rows, k,
-            x.shape[1], _OP_CODE[op], *_scalars(op, params),
-            torch.cuda.current_stream(x.device).cuda_stream)
-        _lib.check(lib, rc, "spmv_vec2")
+            x.shape[1], _OP_CODE[op], *_scalars(op, params))
     return y if sent is None else (y, got)
 
 

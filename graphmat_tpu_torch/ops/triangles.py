@@ -172,13 +172,11 @@ def core_count(bm, sm, iu, iv, s, pv):
         raise RuntimeError(f"core_count has no kernel for {bm.device}")
     if iu.numel() == 0 or bm.shape[1] == 0:   # no edge, or no core (h = 0)
         return pv
-    lib = _lib.load()
-    rc = lib.gm_tc_core_count(
+    _lib.launch(
+        "gm_tc_core_count", bm.device,
         bm.data_ptr(), bm.shape[1], sm.data_ptr(), sm.shape[1],
         bm.shape[0] - 1, iu.data_ptr(), iv.data_ptr(), s.data_ptr(),
-        iu.numel(), pv.data_ptr(),
-        torch.cuda.current_stream(bm.device).cuda_stream)
-    _lib.check(lib, rc, "core_count")
+        iu.numel(), pv.data_ptr())
     LAUNCHES["core_count"] += 1
     return pv
 
@@ -242,14 +240,12 @@ def tail_count(mats, ladder, gk, fa, fb, sp, pv):
         raise RuntimeError(f"tail_count has no kernel for {mats.device}")
     if gk.numel() == 0:
         return pv
-    lib = _lib.load()
     lad = (ctypes.c_int * len(ladder))(*ladder)
-    rc = lib.gm_tc_tail_count(
+    _lib.launch(
+        "gm_tc_tail_count", mats.device,
         mats.data_ptr(), lad, len(ladder), _TAIL_WIDE_FROM, gk.data_ptr(),
         fa.data_ptr(), fb.data_ptr(), sp.data_ptr(), gk.numel(),
-        pv.data_ptr(),
-        torch.cuda.current_stream(mats.device).cuda_stream)
-    _lib.check(lib, rc, "tail_count")
+        pv.data_ptr())
     LAUNCHES["tail_count"] += 1
     return pv
 

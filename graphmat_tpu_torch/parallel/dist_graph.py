@@ -36,6 +36,14 @@ natural layout's largest tile holds more than twice the mean (the JAX
 rule, dist_graph.py:128-148); ``"degree"`` always does; ``True`` draws the
 seeded random permutation; an array gives ``perm[original0] = internal0``.
 ``perm`` equals the JAX package's for the same edge list.
+
+The build reads the edge list :data:`BUILD_CHUNK` edges at a time: a
+first pass checks the ids and counts what ``permute`` needs (each tile's
+edges, each sender's degree), a second routes each chunk's edges of both
+directions to their tiles' devices as int32 local ids; each tile's CSR
+is then sorted on its own device.  So no device holds the whole list as
+int64, and the tiles are those of a build from the whole list at once,
+bit for bit: a tile's edges keep the list's order into the stable sort.
 """
 
 from __future__ import annotations
@@ -47,9 +55,14 @@ import torch
 
 from ..core.graph import CSR, _build_csr, _VpRef, round_up
 from ..io.edgelist import EdgeList
+from ..utils.timing import copied, span
 from .mesh import Mesh
 
-__all__ = ["DistGraph"]
+__all__ = ["DistGraph", "BUILD_CHUNK"]
+
+# edges the build reads at once: bounds its transient memory on the
+# first device (about 80 B an edge)
+BUILD_CHUNK = 1 << 26
 
 
 def _tile_edges(send, recv, R: int, C: int, S: int):
@@ -64,13 +77,26 @@ def _tile_edges(send, recv, R: int, C: int, S: int):
     return tile, send_local, recv_local
 
 
+def _chunks(edgelist: EdgeList, dev):
+    """The edge list :data:`BUILD_CHUNK` edges at a time on ``dev``:
+    0-based int64 ``(src, dst)`` and the values; one empty chunk for an
+    empty list."""
+    src, dst, val = edgelist.astuple()
+    for lo in range(0, max(edgelist.nnz, 1), BUILD_CHUNK):
+        hi = min(lo + BUILD_CHUNK, edgelist.nnz)
+        yield (torch.as_tensor(src[lo:hi], device=dev).long() - 1,
+               torch.as_tensor(dst[lo:hi], device=dev).long() - 1,
+               torch.as_tensor(val[lo:hi], device=dev))
+
+
 class DistGraph:
     """A graph 2D-sharded over a :class:`~graphmat_tpu_torch.parallel.mesh.Mesh`.
 
     The API is :class:`~graphmat_tpu_torch.core.graph.Graph`'s (1-based
     vertex ids, properties in original order at the edges of the API);
     ``compact`` and ``compact_kw`` are its operand compaction, per tile.
-    Every process builds from the whole edge list and keeps its own tiles.
+    Every process reads the whole edge list, chunk by chunk, and keeps
+    its own tiles.
     """
 
     def __init__(self, edgelist: EdgeList, mesh: Mesh,
@@ -90,15 +116,30 @@ class DistGraph:
         S = self.S = max(round_up(-(-n // (R * C)), seg_align), seg_align)
         self.n_pad = R * C * S
 
-        src0 = torch.as_tensor(edgelist.src, device=dev).long() - 1
-        dst0 = torch.as_tensor(edgelist.dst, device=dev).long() - 1
-        vals = torch.as_tensor(edgelist.val, device=dev)
-        if self.nnz and (int(torch.minimum(src0.min(), dst0.min())) < 0
-                         or int(torch.maximum(src0.max(), dst0.max())) >= n):
-            raise ValueError("edge list has vertex ids outside [1, n]")
+        # the first pass: the ids checked; the natural layout's edges per
+        # tile ("auto") and each sender's out-degree ("degree") counted
+        auto = (isinstance(permute, str) and permute == "auto"
+                and R * C > 1 and self.nnz > 0)
+        by_degree = auto or (isinstance(permute, str)
+                             and permute == "degree")
+        per_tile = torch.zeros(R * C, dtype=torch.int64, device=dev)
+        deg = (torch.zeros(n, dtype=torch.int64, device=dev) if by_degree
+               else None)
+        for src0, dst0, _ in _chunks(edgelist, dev):
+            if src0.numel() and (
+                    int(torch.minimum(src0.min(), dst0.min())) < 0
+                    or int(torch.maximum(src0.max(), dst0.max())) >= n):
+                raise ValueError("edge list has vertex ids outside [1, n]")
+            if auto:
+                per_tile += torch.bincount(
+                    ((dst0 // S) // C) * C + (src0 // S) % C,
+                    minlength=R * C)
+            if by_degree:
+                deg += torch.bincount(src0, minlength=n)
+        del src0, dst0
 
         if isinstance(permute, str) and permute == "auto":
-            permute = self._auto_permute(src0, dst0)
+            permute = self._auto_permute(per_tile) if auto else False
         self.perm: Optional[torch.Tensor] = None   # perm[orig0] = internal0
         if permute is not False and permute is not None:
             if isinstance(permute, (np.ndarray, torch.Tensor)):
@@ -110,7 +151,6 @@ class DistGraph:
                 # the k-th hottest sender goes to segment k % RC at offset
                 # k // RC, so every tile row and column gets an equal share
                 # of the hubs
-                deg = torch.bincount(src0, minlength=n)
                 order = torch.argsort(-deg, stable=True)
                 k = torch.arange(n, device=dev)
                 perm = torch.empty(n, dtype=torch.int64, device=dev)
@@ -119,18 +159,27 @@ class DistGraph:
                 rng = np.random.default_rng(permute_seed)
                 perm = torch.as_tensor(rng.permutation(n), device=dev).long()
             self.perm = perm
-            src0 = perm[src0]
-            dst0 = perm[dst0]
+        del deg
 
-        self._tiles: Dict[str, List[CSR]] = {}
-        if build_out_edges:
-            self._tiles["dst"] = self._build_tiles(src0, dst0, vals, compact,
-                                                   compact_kw)
-        if build_in_edges:
-            self._tiles["src"] = self._build_tiles(dst0, src0, vals, compact,
-                                                   compact_kw)
-        del src0, dst0, vals
+        # the second pass: each chunk's edges routed to their tiles, both
+        # directions at once
+        recvs = [r for r, on in (("dst", build_out_edges),
+                                 ("src", build_in_edges)) if on]
+        parts = {r: [[] for _ in self.local] for r in recvs}
+        for src0, dst0, vals in _chunks(edgelist, dev):
+            if self.perm is not None:
+                src0, dst0 = self.perm[src0], self.perm[dst0]
+            for recv in recvs:
+                send, rec = (src0, dst0) if recv == "dst" else (dst0, src0)
+                self._route(send, rec, vals, parts[recv])
+        del src0, dst0, vals, send, rec
+        self._tiles: Dict[str, List[CSR]] = {
+            recv: self._build_tiles(parts[recv], compact, compact_kw)
+            for recv in recvs}
         self._sender: Dict[str, List[CSR]] = {}
+        # a dense sweep's got per set of directions (the engine's, made
+        # once: the structure never changes)
+        self._got_static: Dict[tuple, List[torch.Tensor]] = {}
 
         vv = torch.zeros(self.n_pad, dtype=torch.bool, device=dev)
         if self.perm is None:
@@ -143,14 +192,11 @@ class DistGraph:
 
     # ------------------------------------------------------------- build
 
-    def _auto_permute(self, src0, dst0):
+    def _auto_permute(self, per_tile):
         """The JAX rule: "degree" when the natural layout's largest tile
-        (receiver = dst) holds more than twice the mean, else False."""
-        R, C, S = self.R, self.C, self.S
-        if R * C == 1 or not src0.numel():
-            return False
-        tile = ((dst0 // S) // C) * C + (src0 // S) % C
-        cnt = torch.bincount(tile, minlength=R * C).double()
+        (receiver = dst), whose edges ``per_tile`` counts, holds more than
+        twice the mean, else False."""
+        cnt = per_tile.double()
         mean = max(float(cnt.mean()), 1.0)
         if float(cnt.max()) <= 2.0 * mean:
             return False
@@ -161,24 +207,35 @@ class DistGraph:
             float(cnt.max()) / mean)
         return "degree"
 
-    def _build_tiles(self, send, recv, vals, compact, compact_kw):
-        """One CSR per local tile of the direction whose receivers are
-        ``recv``."""
+    def _route(self, send, recv, vals, parts):
+        """Append to ``parts[p]`` local tile ``p``'s edges of one chunk of
+        the direction whose receivers are ``recv``: int32 local senders
+        and receivers and the values, on the tile's device, in the
+        chunk's order."""
         R, C, S = self.R, self.C, self.S
         tile, send_local, recv_local = _tile_edges(send, recv, R, C, S)
-        if len(self.local) == 1:
-            sels = [torch.nonzero(tile == self.local[0]).squeeze(1)]
-        else:
-            order = torch.argsort(tile, stable=True)
-            bounds = [0] + torch.cumsum(torch.bincount(
-                tile, minlength=R * C), 0).tolist()
-            sels = [order[bounds[t]:bounds[t + 1]] for t in self.local]
-        del tile
+        order = torch.argsort(tile, stable=True)
+        bounds = [0] + torch.cumsum(torch.bincount(
+            tile, minlength=R * C), 0).tolist()
+        for p, (t, d) in enumerate(zip(self.local, self.devices)):
+            sel = order[bounds[t]:bounds[t + 1]]
+            parts[p].append((send_local[sel].to(torch.int32).to(d),
+                             recv_local[sel].to(torch.int32).to(d),
+                             vals[sel].to(d)))
+
+    def _build_tiles(self, parts, compact, compact_kw):
+        """One CSR per local tile from its routed pieces, each sorted on
+        the tile's device; the pieces are freed as their tile is built."""
+        C, S = self.C, self.S
         out = []
-        for t, sel, d in zip(self.local, sels, self.devices):
-            out.append(_build_csr(send_local[sel].to(d), recv_local[sel].to(d),
-                                  vals[sel].to(d), C * S, R * S, compact,
-                                  compact_kw))
+        for p in range(len(parts)):
+            pieces, parts[p] = parts[p], None
+            send, recv, vals = (torch.cat(x) for x in zip(*pieces))
+            del pieces
+            send, recv = send.long(), recv.long()
+            out.append(_build_csr(send, recv, vals, C * S, self.R * S,
+                                  compact, compact_kw))
+            del send, recv, vals
         return out
 
     # ------------------------------------------------------------- edges
@@ -300,8 +357,8 @@ class DistGraph:
                 value = value.copy()   # torch takes no read-only arrays
             arr = torch.as_tensor(value, device=self.device)
             if arr.dim() == 0 or arr.shape[0] != self.n:
-                segs = [arr.expand((self.S,) + tuple(arr.shape)).clone()
-                        .to(d) for d in self.devices]
+                segs = [arr.to(d).expand((self.S,) + tuple(arr.shape))
+                        .clone() for d in self.devices]
             else:
                 segs = self._split(self._from_original(arr))
             for p, seg in enumerate(segs):
@@ -348,16 +405,21 @@ class DistGraph:
 
     def vp_numpy(self) -> Dict[str, np.ndarray]:
         """Host copies of the vertex properties in ORIGINAL order, on every
-        process."""
-        return {k: self._to_original(
-            self._full([v[k] for v in self.vp]).cpu().numpy())
-            for k in self.vp[0]}
+        process (the ``graph.readback`` span, as ``Graph``'s)."""
+        with span("graph.readback"):
+            full = {k: self._full([v[k] for v in self.vp]).cpu().numpy()
+                    for k in self.vp[0]}
+            copied("dtoh", *full.values())
+            return {k: self._to_original(a) for k, a in full.items()}
 
     # ------------------------------------------------------------- active
 
     def active_numpy(self) -> np.ndarray:
         """The frontier as a host bool[n] in ORIGINAL order."""
-        return self._to_original(self._full(self.active).cpu().numpy())
+        with span("graph.readback"):
+            a = self._full(self.active).cpu().numpy()
+            copied("dtoh", a)
+            return self._to_original(a)
 
     def set_all_active(self) -> None:
         self.active = [v.clone() for v in self.valid_vertex]

@@ -32,8 +32,13 @@ One step, for the tiles this process holds:
 5. apply where got, then all-reduce the changed count.
 
 The loop reads the count to the host once per iteration, as ``Engine.run``
-does.  One process driving several tiles on one card runs their kernels
-one after another on one stream.
+does, and nothing else: one process driving a host's cards enqueues each
+tile's work on its own card, so the cards work at once.  One process
+driving several tiles on one card runs their kernels one after another
+on one stream.  It records the one-device Engine's ``engine.run`` span,
+an ``engine.step`` span and an ``engine.steps`` count a step, and the
+read's ``engine.converge`` span and ``copy.dtoh`` count; the mesh records
+its collectives (:mod:`.mesh`).
 
 ``do_every_iteration`` runs per segment, as under the JAX ``shard_map``:
 its ``ctx.all_reduce_sum`` reduces over the whole mesh.  With several
@@ -49,10 +54,11 @@ from typing import Any, List, Optional
 import torch
 
 from ..core.program import GraphProgram, IterationContext
-from ..core.runtime import Routing, _on_device
+from ..core.runtime import Routing, _on_device, _read_changed
 from ..core.tree import tree_map
 from ..core.types import Activity, Monoid, UNTIL_CONVERGENCE
 from ..ops.spmv2u import IDENTITY
+from ..utils.timing import count, traced
 from .dist_graph import DistGraph
 from .mesh import COL_AXIS, ROW_AXIS
 
@@ -165,7 +171,6 @@ class DistEngine(Routing):
                          for c in graph.csrs(recv)]
                 self._msg_width[recv] = int(self.mesh.all_reduce(
                     [w.reshape(1).to(torch.int32) for w in local], "max"))
-        self._got_static = None
         self.final_state = None
 
     @property
@@ -192,13 +197,15 @@ class DistEngine(Routing):
 
     def _dense_got(self) -> List[torch.Tensor]:
         """got of a dense sweep, from the structure: some tile of the row
-        block holds an edge into the receiver (made once)."""
-        if self._got_static is None:
+        block holds an edge into the receiver (made once per graph and
+        set of directions, as a CSR keeps its own)."""
+        made = self.graph._got_static
+        if self._receivers not in made:
             has = [self._structural_got(self._tile(p)).to(torch.int32)
                    for p in range(len(self.graph.local))]
-            self._got_static = [c > 0 for c in self.mesh.reduce_scatter(
+            made[self._receivers] = [c > 0 for c in self.mesh.reduce_scatter(
                 has, COL_AXIS, "sum")]
-        return self._got_static
+        return made[self._receivers]
 
     def _kernel_directions(self, msgs, sents, rfs):
         """Every tile and direction through K1 (or the push kernel):
@@ -295,9 +302,11 @@ class DistEngine(Routing):
         return prog.do_every_iteration(sts[0], vps[0], it,
                                        _Recording(replay=sums))
 
+    @traced("engine.step")
     def _step(self, it: int, state, vps, actives):
         """One iteration; returns (state, vps, actives, nchanged) with the
         global changed count a tensor left on the device."""
+        count("engine.steps")
         g = self.graph
         valid = g.valid_vertex
         on_dev = {}
@@ -330,6 +339,7 @@ class DistEngine(Routing):
         state = self._every_iteration(sts, new_vps, it)
         return state, new_vps, new_act, nchanged
 
+    @traced("engine.run")
     def run(self, iterations: int = UNTIL_CONVERGENCE,
             max_iterations: int = 1_000_000, state: Any = None) -> int:
         """Run the program, updating ``graph.vp`` and ``graph.active``.
@@ -352,7 +362,7 @@ class DistEngine(Routing):
                 state, vps, active, nchanged = self._step(it, state, vps,
                                                           active)
                 it += 1
-                if not int(nchanged):
+                if not _read_changed(nchanged):
                     break
         g.vp = vps
         g.active = active
@@ -366,7 +376,7 @@ class DistEngine(Routing):
                  else _on_device(state, g.device))
         state, g.vp, g.active, nchanged = self._step(0, state, g.vp,
                                                      g.active)
-        return state, not int(nchanged)
+        return state, not _read_changed(nchanged)
 
 
 def run_graph_program_dist(program: GraphProgram, graph: DistGraph,

@@ -29,6 +29,18 @@ in flattened order.  Two implementations:
 * :class:`ProcessMesh` holds one tile per rank of ``torch.distributed``
   (NCCL on cards, gloo on the CPU), over a ``DeviceMesh`` with dimensions
   ``("r", "c")``; rank ``t`` holds tile ``t``.
+
+Both record each collective as a span of
+:mod:`graphmat_tpu_torch.utils.timing` (``mesh.all_gather``,
+``mesh.reduce_scatter``, ``mesh.all_to_all``, ``mesh.all_reduce``,
+``mesh.gather_segments``) and count what the tiles held here receive
+from other tiles: ``mesh.bytes`` and ``mesh.n`` (tensors).  The count is
+the collective's, not the implementation's: an all-gather over ``g``
+tiles brings each tile ``g - 1`` tensors, a reduce-scatter or an
+all-to-all ``g - 1`` chunks of ``1/g`` of each, an all-reduce ``R * C -
+1`` values, a gather of segments the gathering tile (every rank, on a
+:class:`ProcessMesh`) ``R * C - 1`` segments.  So a 2x2 grid on one
+card, or on the CPU, counts what four ranks would send each other.
 """
 
 from __future__ import annotations
@@ -38,6 +50,8 @@ import math
 from typing import List, Optional, Sequence
 
 import torch
+
+from ..utils.timing import count, traced
 
 __all__ = ["ROW_AXIS", "COL_AXIS", "factor2d", "make_mesh", "Mesh",
            "LocalMesh", "ProcessMesh"]
@@ -99,6 +113,13 @@ class Mesh:
         raise NotImplementedError
 
 
+def _received(tiles: int, others: int, nbytes: int) -> None:
+    """Count that each of ``tiles`` tiles received ``others`` tensors of
+    ``nbytes`` bytes from other tiles."""
+    count("mesh.bytes", float(tiles * others * nbytes))
+    count("mesh.n", float(tiles * others))
+
+
 def _check_kind(kind):
     if kind not in _COMBINE:
         raise ValueError(f"reduce kind {kind!r} is not one of "
@@ -108,9 +129,10 @@ def _check_kind(kind):
 class LocalMesh(Mesh):
     """Every tile in this process: tile ``t`` on ``devices[t]``.
 
-    A collective's result is computed once per (group, device) and shared
-    by the tiles of the group on that device: tensors are read-only to
-    the engine."""
+    An all-gather is computed once per (group, device) and shared by the
+    tiles of the group on that device: tensors are read-only to the
+    engine.  A copy between cards is a ``.to(device)``, which PyTorch
+    orders on both cards' streams without waiting on the host."""
 
     def __init__(self, devices: Sequence, shape: Optional[tuple] = None):
         devices = [torch.device(d) for d in devices]
@@ -133,36 +155,39 @@ class LocalMesh(Mesh):
             return [i * c + k for k in range(c)]
         raise ValueError(f"axis {axis!r} is not 'r' or 'c'")
 
-    def _per_tile(self, ts, axis, make):
-        """``make(group, device)`` for each tile, computed once per
-        (group, device)."""
-        cache = {}
-        out = []
+    @traced("mesh.all_gather")
+    def all_gather(self, ts, axis):
+        _received(len(self.local), len(self._group(0, axis)) - 1,
+                  ts[0].nbytes)
+        # made once per (group, device), shared by the tiles there
+        made, out = {}, []
         for t in self.local:
-            g = self._group(t, axis)
-            key = (g[0], self.devices[t])
-            if key not in cache:
-                cache[key] = make(g, self.devices[t])
-            out.append((cache[key], g.index(t)))
+            g, d = self._group(t, axis), self.devices[t]
+            if (g[0], d) not in made:
+                made[g[0], d] = torch.cat([ts[u].to(d) for u in g])
+            out.append(made[g[0], d])
         return out
 
-    def all_gather(self, ts, axis):
-        return [full for full, _ in self._per_tile(
-            ts, axis, lambda g, d: torch.cat([ts[u].to(d) for u in g]))]
-
+    @traced("mesh.reduce_scatter")
     def reduce_scatter(self, ts, axis, kind):
         _check_kind(kind)
-
-        def fold(g, d):
-            return functools.reduce(_COMBINE[kind], [ts[u].to(d) for u in g])
+        n = len(self._group(0, axis))
+        _received(len(self.local), n - 1, ts[0].nbytes // n)
+        s = ts[0].shape[0] // n
         out = []
-        for full, pos in self._per_tile(ts, axis, fold):
-            s = full.shape[0] // len(self._group(0, axis))
-            out.append(full[pos * s:(pos + 1) * s])
+        for t in self.local:
+            # each tile folds only its own chunk of the group's partials,
+            # in group order: only that chunk crosses between cards
+            g = self._group(t, axis)
+            lo, d = g.index(t) * s, self.devices[t]
+            out.append(functools.reduce(
+                _COMBINE[kind], [ts[u][lo:lo + s].to(d) for u in g]))
         return out
 
+    @traced("mesh.all_to_all")
     def all_to_all(self, ts, axis, concat_dim=0):
         n = len(self._group(0, axis))
+        _received(len(self.local), n - 1, ts[0].nbytes // n)
         out = []
         for t in self.local:
             g = self._group(t, axis)
@@ -172,12 +197,16 @@ class LocalMesh(Mesh):
                                   for u in g], dim=concat_dim))
         return out
 
+    @traced("mesh.all_reduce")
     def all_reduce(self, ts, kind="sum"):
         _check_kind(kind)
+        _received(len(self.local), len(self.local) - 1, ts[0].nbytes)
         d = ts[0].device
         return functools.reduce(_COMBINE[kind], [t.to(d) for t in ts])
 
+    @traced("mesh.gather_segments")
     def gather_segments(self, ts):
+        _received(1, len(ts) - 1, ts[0].nbytes)
         d = ts[0].device
         return torch.cat([t.to(d) for t in ts])
 
@@ -246,24 +275,29 @@ class ProcessMesh(Mesh):
                         COL_AXIS: self._dm.get_group(COL_AXIS)}
         self._n = {ROW_AXIS: r, COL_AXIS: c}
 
+    @traced("mesh.all_gather")
     def all_gather(self, ts, axis):
-        import torch.distributed as dist
         x, back = _wire(ts[0])
+        _received(1, self._n[axis] - 1, x.nbytes)
         out = x.new_empty((self._n[axis] * x.shape[0],) + x.shape[1:])
         _single("all_gather_single", "all_gather_into_tensor")(
             out, x, group=self._groups[axis])
         return [back(out)]
 
+    @traced("mesh.reduce_scatter")
     def reduce_scatter(self, ts, axis, kind):
         x, back = _wire(ts[0])
+        _received(1, self._n[axis] - 1, x.nbytes // self._n[axis])
         out = x.new_empty((x.shape[0] // self._n[axis],) + x.shape[1:])
         _single("reduce_scatter_single", "reduce_scatter_tensor")(
             out, x, op=_reduce_op(kind), group=self._groups[axis])
         return [back(out)]
 
+    @traced("mesh.all_to_all")
     def all_to_all(self, ts, axis, concat_dim=0):
         import torch.distributed as dist
         x, back = _wire(ts[0])
+        _received(1, self._n[axis] - 1, x.nbytes // self._n[axis])
         out = torch.empty_like(x)
         dist.all_to_all_single(out, x, group=self._groups[axis])
         if concat_dim != 0:
@@ -271,16 +305,20 @@ class ProcessMesh(Mesh):
             out = torch.cat(out.split(s), dim=concat_dim)
         return [back(out)]
 
+    @traced("mesh.all_reduce")
     def all_reduce(self, ts, kind="sum"):
         import torch.distributed as dist
         x, back = _wire(ts[0])
+        _received(1, dist.get_world_size() - 1, x.nbytes)
         x = x.clone()
         dist.all_reduce(x, op=_reduce_op(kind))
         return back(x)
 
+    @traced("mesh.gather_segments")
     def gather_segments(self, ts):
         import torch.distributed as dist
         x, back = _wire(ts[0])
+        _received(1, dist.get_world_size() - 1, x.nbytes)
         out = x.new_empty((dist.get_world_size() * x.shape[0],)
                           + x.shape[1:])
         _single("all_gather_single", "all_gather_into_tensor")(out, x)

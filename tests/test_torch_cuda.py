@@ -926,11 +926,11 @@ PUSH_SHARES = (1e-4, 1e-2, 0.1, 1.0)   # frontier shares of the push's sums
 def _push_frontiers(g, seed, hub=False):
     """A sent mask at each of PUSH_SHARES (the hub sender in each on the
     hub graph)."""
-    gen = torch.Generator(device="cuda")
+    gen = torch.Generator(device=g.device)
     gen.manual_seed(seed)
     out = []
     for share in PUSH_SHARES:
-        sent = (torch.rand(g.n_pad, generator=gen, device="cuda")
+        sent = (torch.rand(g.n_pad, generator=gen, device=g.device)
                 < share).to(torch.uint8)
         if hub:
             sent[HUB + 1] = 1
@@ -1330,3 +1330,67 @@ def test_graft_entry_on_cuda(cuda):
              sum(spmv_vec2.LAUNCHES.values()),
              spmv2.LAUNCHES["dense"] + spmv2.LAUNCHES["sparse"])
     assert all(a > b for a, b in zip(after, counts)), (counts, after)
+
+
+# ------------------------------------------------- four cards, one process
+
+@pytest.fixture
+def four_cards(cuda):
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards")
+    return [torch.device("cuda", i) for i in range(4)]
+
+
+# each kernel wrapper's check above, given a card that is not current
+OTHER_CARD = {
+    "k1": lambda d: test_spmv_kernel_matches_plain(d, "sum", "x_mul_val",
+                                                   "sparse_got"),
+    "k1_min": lambda d: test_spmv_kernel_matches_plain(d, "min", "x_add_val",
+                                                       "sparse"),
+    "k2": lambda d: test_aux_gather_kernel_matches_plain(d, True, 300_001),
+    "k3": lambda d: test_spmv_vec2_kernel_matches_plain(d, "sgd", 20),
+    "k3_sparse": lambda d: test_spmv_vec_sparse_kernel_matches_plain(
+        d, "sgd", 20, 0.1),
+    "push": lambda d: test_push_kernel_matches_plain(d, "max", "x_add_val",
+                                                     1e-2),
+    "push_mark": test_push_mark_kernel_matches_plain,
+    "rmat": lambda d: test_rmat_kernels_match_plain(d, 14, 255),
+    "rand_r": lambda d: test_rand_r_uniform_kernel_matches_numpy(
+        d, torch.float32, 20, 1),
+    "triangles": lambda d: test_triangle_kernels_match_plain(d, "rmat14_h64"),
+}
+
+
+@pytest.mark.parametrize("kernel", sorted(OTHER_CARD))
+def test_kernel_launches_on_a_card_that_is_not_current(four_cards, kernel):
+    """Each wrapper called with cuda:1 tensors while cuda:0 is current
+    equals its plain twin: the launch runs on the tensors' card and
+    leaves the thread's card as it was."""
+    torch.cuda.set_device(0)
+    OTHER_CARD[kernel](four_cards[1])
+    torch.cuda.synchronize(four_cards[1])
+    assert torch.cuda.current_device() == 0
+
+
+def test_pagerank_over_four_cards_matches_one_card(four_cards):
+    """PageRank on a 2x2 LocalMesh over cuda:0-3 at RMAT-20 against the
+    one-card Graph: each stops no earlier than the float64 run allows
+    (steps compared through it, ROADMAP H1); run for the same steps, the
+    two within 1e-5 of max(1, |pr|); every tile's K1 on its own card."""
+    from graphmat_tpu_torch.parallel.dist_graph import DistGraph
+    from graphmat_tpu_torch.parallel.mesh import LocalMesh
+    e = rmat_edgelist(20, 16, seed=3, device="cpu")
+    k0 = first_f64_stop(e)
+    one = gt.Graph(e, device=four_cards[0])
+    mesh = DistGraph(e, LocalMesh(four_cards, (2, 2)))
+    assert [c.rowptr.device for c in mesh.csrs("dst")] == four_cards
+    _, it_1 = tpr.run_pagerank(one)
+    before = spmv2u.LAUNCHES["dense"]
+    _, it_4 = tpr.run_pagerank(mesh)
+    assert spmv2u.LAUNCHES["dense"] - before == 4 * it_4
+    for it in (it_1, it_4):
+        assert k0 <= it <= k0 + 40
+    k = max(it_1, it_4)
+    pr_1, _ = tpr.run_pagerank(one, iterations=k)
+    pr_4, _ = tpr.run_pagerank(mesh, iterations=k)
+    assert (abs(pr_4 - pr_1) / np.maximum(1.0, abs(pr_1))).max() <= 1e-5
