@@ -50,7 +50,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    seeded bipartite graph of 1M ratings, for every op at K = 1, 4, 20,
    40, 96, 161, 200 and 513 (past 256 columns the slab kernel), and at
    K = 4, 20 and 161 on a row-length graph (empty rows, rows of 1, 31,
-   32 and 33 edges, one row of 2^16 edges); rows without edges must be
+   32, 33, 1024 and 1025 edges, one row of 2^16 edges and one of
+   81,491, the last three cut into chunks); rows without edges must be
    exactly 0, and each dense sum bitwise the same over two launches;
 8. the SGD and LDA CLIs on ``data/ratings7.bin.mtx`` against the
    reference binary's outputs in ``tests/golden``;
@@ -68,7 +69,9 @@ Phases, in order; any failure raises and the script exits non-zero:
     device memory, each iteration's torch.profiler breakdown; and
     ``k3_diagnosis``: K3 at several K, ``sgd`` with vp = 0 at the LDA
     shape (the gather's floor), ``lda`` on the term rows against the doc
-    rows;
+    rows; and K3 ``sgd`` and ``sgd_sqerr`` on the benchmark's skewed
+    MovieLens-25M draw (``perfbench/gen/ratings.py``), each direction,
+    against their plain versions (the ``spmv_vec2 (skewed)`` record);
 12. K1's recv_final skip (0, 50 and 100% of rows final, sparse min and
     sum with got) and packed-key ⊗, and the push (sum with got: the mark
     pass and K1; min, max, every ⊗; dense and frontiers of 0.01%, 1% and
@@ -276,9 +279,10 @@ K3_OPS = ("sgd", "sgd_sqerr", "lda_init", "lda", "lda_loglik")
 # slab kernel past 256 columns
 K3_WIDTHS = (1, 4, 20, 40, 96, 161, 200, 513)
 # rows of the row-length graph: empty, one edge, a warp's batch of 32 edges
-# and one either side of it, and one row of 2^16 edges
-ROW_LENGTHS = ((0, 64), (1, 512), (31, 64), (32, 64), (33, 64),
-               (1 << 16, 1))
+# and one either side of it, a warp's most (C = 1024) and one more, one row
+# of 2^16 edges and one of MovieLens-25M's most rated film's 81,491
+ROW_LENGTHS = ((0, 64), (1, 512), (31, 64), (32, 64), (33, 64), (1024, 4),
+               (1025, 4), (1 << 16, 1), (81_491, 1))
 
 
 def log(*args):
@@ -1389,6 +1393,7 @@ def k3_diagnosis(g_sgd, g_lda, params, reps=10, seed=41):
     against the doc rows alone (232), each through a view without the
     other kind's empty rows."""
     import torch
+    from graphmat_tpu_torch.ops import spmv2u
     from graphmat_tpu_torch.ops import spmv_vec2 as sv
     dev = g_sgd.device
     gen = torch.Generator(device=dev)
@@ -1401,9 +1406,10 @@ def k3_diagnosis(g_sgd, g_lda, params, reps=10, seed=41):
 
     def time(csr, op, x, vp, extra, rows=slice(None)):
         vr = vp[rows] if vp is not None else None
+        plan = spmv2u.plan_for(csr)
         return event_ms(lambda: sv.spmv_vec_csr(
-            csr.rowptr, csr.col, csr.val_f32, x, op, vr, extra, params),
-            reps)
+            csr.rowptr, csr.col, csr.val_f32, x, op, vr, extra, params,
+            plan=plan), reps)
     out = {"a": {}}
     for op, csr, n, rows in (("sgd", items, g_sgd.n_pad, slice(None)),
                              ("lda", terms, g_lda.n_pad,
@@ -1426,9 +1432,44 @@ def k3_diagnosis(g_sgd, g_lda, params, reps=10, seed=41):
     return out
 
 
+def k3_skewed(device, k=20, seed=7400000019):
+    """K3 ``sgd`` and ``sgd_sqerr`` alone on the benchmark's own skewed
+    MovieLens-25M draw (``perfbench/gen/ratings.py`` with
+    ``perfbench/configs/movielens25m-k20.json``, the graph as
+    ``perfbench/port.py`` builds it), each direction: ``dst`` the film
+    rows (the most rated film about 81,500 ratings, cut into chunks of
+    1024), ``src`` the user rows; each against its plain version.
+    Returns ({each time in ms, ``chunks``: each direction's count}, max
+    |error|)."""
+    import torch
+    from graphmat_tpu_torch.ops import spmv2u
+    from graphmat_tpu_torch.ops import spmv_vec2 as sv
+    from perfbench import harness, port
+    cfg = json.load(open(os.path.join(ROOT, "perfbench", "configs",
+                                      "movielens25m-k20.json")))
+    inp = harness.generator(cfg).make(cfg, seed, device)
+    g = port.graph(inp, device, val=inp["val"])
+    del inp
+    gen = torch.Generator(device=device)
+    gen.manual_seed(47)
+    x, vp, _ = k3_inputs("sgd", k, g.n_pad, gen, device)
+    out, chunks, err = {}, {}, 0.0
+    for recv in ("dst", "src"):
+        csr = g.csr(recv)
+        chunks[recv] = spmv2u.plan_for(csr).chunk_row.numel()
+        for op in ("sgd", "sgd_sqerr"):
+            out[f"{op}_skewed_{recv}_ms"] = event_ms(
+                lambda: sv.spmv_vec(csr, x, op, vp), 10)
+            err = max(err, check_k3_case(csr, op, x, vp, None, None, device,
+                                         long_rows=True))
+    out["chunks"] = chunks
+    return out, err
+
+
 def phase_ml_timings(g_sgd, g_lda, gn_lda, card, k=20):
     """Phase 11: SGD and LDA iteration and K3 times at the slices'
-    shapes, kernel beside plain."""
+    shapes, kernel beside plain; K3 on the benchmark's skewed MovieLens
+    draw (:func:`k3_skewed`)."""
     import torch
     from graphmat_tpu_torch.apps import lda, sgd
     from graphmat_tpu_torch.core import runtime
@@ -1489,8 +1530,11 @@ def phase_ml_timings(g_sgd, g_lda, gn_lda, card, k=20):
                              ("lda_loglik", c_lda, "lda_loglik",
                               g_lda.n_pad)):
         x, vp, extra = k3_inputs(op, k, n, gen, g_sgd.device)
-        k3[name + "_ms"] = event_ms(lambda: sv.spmv_vec_csr(
-            csr.rowptr, csr.col, csr.val_f32, x, op, vp, extra, params), 5)
+        k3[name + "_ms"] = event_ms(lambda: sv.spmv_vec(
+            csr, x, op, vp, extra, params), 5)
+    # sgd and sgd_sqerr on the benchmark's skewed draw, each direction
+    k3["skewed"], err_skewed = k3_skewed(g_sgd.device, k)
+    err = max(err, err_skewed)
     sgd_ms, lda_ms = min(step["sgd_kernel"]), min(step["lda_kernel"])
     # K3 sgd's bound: rowptr, col, val, x, vp and y once; 4K flops a edge
     k3_bytes = 4 * (c_sgd.rowptr.numel() + 2 * c_sgd.nnz
@@ -4820,6 +4864,16 @@ def main(argv=None):
             + launches(graft, "k3"), k3_err,
             t3["k3_ms"]["sgd_ms"], t3["k3_ms"]["sgd_plain_ms"],
             t3["k3_ms"]["sgd_bound_ms"], t3["k3_ms"]["sgd_bound_by"], None),
+        # the same kernel's sgd and sgd_sqerr on the benchmark's skewed
+        # MovieLens-25M draw, each direction (phase 11), beside the record
+        # above's uniform draw
+        dict(kernel_record(
+            "spmv_vec2 (skewed)", "graphmat_tpu_torch/csrc/spmv_vec2.cu",
+            "graphmat_tpu/ops/pallas_spmv_vec2.py:510",
+            sum(k3_sgd.values()), k3_err,
+            t3["k3_ms"]["skewed"]["sgd_skewed_dst_ms"], None,
+            t3["k3_ms"]["sgd_bound_ms"], t3["k3_ms"]["sgd_bound_by"], None),
+            skewed=t3["k3_ms"]["skewed"]),
         # the same kernel's lda op at NYTimes shape (its launches are
         # counted in the record above too)
         kernel_record(

@@ -68,11 +68,12 @@
 // one.  G and V follow the width (template parameters): one lane an edge
 // up to 8 components, then the fewest lanes of 2, 4, ..., 32 with V = 2,
 // up to 256.  A lane never holds more than 8 components, so a kernel
-// keeps to about 64 registers and an SM runs 32 warps: on the card more
-// warps beat fuller lanes (PERF.md).  The in-row sums (sgd's dot
-// product, lda's normaliser, lda_loglik's theta total and dot) are taken
-// inside the lane in four fixed partial chains, then across the group by
-// an xor tree.  lda multiplies by reciprocals: the block keeps
+// keeps to 64 registers (its launch bounds hold it there) and an SM runs
+// 32 warps: on the card more warps beat fuller lanes (PERF.md).  The
+// in-row sums (sgd's dot product, lda's normaliser, lda_loglik's theta
+// total and dot) are taken inside the lane in four fixed partial chains,
+// then across the group by an xor tree.  lda multiplies by reciprocals:
+// the block keeps
 // 1 / (extra[c] + V(eta - 1)) in shared memory, a lane folds it into the
 // receiver's factor once per row, and scales an edge by val / tot, one
 // division an edge instead of 2 (k - 1); each term moves by about one
@@ -87,6 +88,21 @@
 // group i mod (32 / G), and each group sums its edges in edge order with
 // one fused multiply-add each, so a sum is bitwise the same from launch
 // to launch.
+//
+// No warp takes more than C = 1024 edges, whatever the degrees.  A row of
+// at most C edges is walked as above by one warp.  A longer row (a
+// MovieLens film with 81,000 ratings, on one warp, held a whole launch for
+// as long as the rest of the card took for all other rows) is cut into
+// chunks of C edges, the chunks of K1's split of the CSR (ops/spmv2u.py:
+// k1_plan, built once per CSR), one warp each: the chunk computes the
+// receiver's values itself, sums its edges exactly as a row's, and writes
+// its K-wide partial (one float for the scalar ops; for lda_init in
+// double) and, in the sparse mode, its count to scratch.  A second launch
+// sums each such row's partials in chunk order and writes y and got.  The
+// wave's warps take the chunks by stride, then the rows, as before; which
+// warp takes a chunk or a row never changes a bit.  So a CSR with no row
+// over C runs the one-warp-a-row walk and gives its bits, and the sparse
+// mode with every sender sent gives those of the dense mode.
 //
 // Wider rows (more than 256 components) take the slab kernel: the warp
 // walks the row's edges one at a time, each lane holding components
@@ -113,17 +129,22 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 enum Op { kSgd = 0, kSgdSqerr = 1, kLdaInit = 2, kLda = 3, kLdaLoglik = 4 };
 
 constexpr int kWarpsPerBlock = 8;
+constexpr int kBlocksPerSm = 4;   // 32 warps an SM: at most 64 registers
 constexpr int kMaxV = 2;     // float4s of components a lane holds
 constexpr int kMaxG = 32;    // lanes an edge takes in the register layout
 constexpr int kRegWidth = 4 * kMaxV * kMaxG;   // 256; wider: the slab kernel
 constexpr int kSlab = 128;   // components a slab covers, 4 per lane
 constexpr int kDenseSpan = 64;     // edges the dense mode reads at once
 constexpr int kSparseSpan = 64;    // edges the sparse mode reads at once
+constexpr int kChunkEdges = 1024;  // C; ops/spmv2u.py: CHUNK_EDGES
+constexpr int kCombineThreads = 256;
 constexpr uint32_t kLcgA = 1103515245u;
 constexpr uint32_t kLcgC = 12345u;
 constexpr float kInvRandMaxF32 = 4.656612873077392578125e-10f;  // 2^-31
@@ -141,6 +162,20 @@ struct Args {
   int n_rows, k, ldx, nc;
   bool xvec, vpvec, yvec;   // x's, vp's and y's rows 16-byte aligned
   float s0, s1, s2;
+  // the chunks of the rows of more than C edges (register layout only):
+  // chunk c covers edges [chunk_start[c], + C) of row chunk_row[c], cut at
+  // the row's end; long row h (long_rows[h]) owns chunks [long_first[h],
+  // long_first[h + 1]).  part holds a chunk's partial, [n_chunks, out
+  // width] float32 (float64 for lda_init), part_cnt its count in the
+  // sparse mode.
+  const int* chunk_row;
+  const int* chunk_start;
+  const int* long_rows;
+  const int* long_first;
+  void* part;
+  int* part_cnt;
+  int n_chunks, n_long;
+  bool pvec;                // part's rows 16-byte aligned
 };
 
 // The LCG s -> A s + C advanced n steps, as s -> a s + c (mod 2^32): by
@@ -199,10 +234,11 @@ __device__ __forceinline__ float sum4(const float* v) {
 
 // ------------------------------------------- register layout, width <= 256
 
-// One warp per receiver row; a group of G lanes per edge; lane `sub` of a
-// group holds components 4 (sub + G i) + j, i < V, j < 4.
+// One warp per item, a receiver row or a chunk of one; a group of G lanes
+// per edge; lane `sub` of a group holds components 4 (sub + G i) + j,
+// i < V, j < 4.
 template <int OP, int G, int V, bool SPARSE>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, kBlocksPerSm)
 k3_lanes(const Args a) {
   constexpr int C = 4 * V;
   constexpr int NG = 32 / G;       // edges a warp holds in flight
@@ -231,16 +267,10 @@ k3_lanes(const Args a) {
   // the component of slot (i, j)
   auto comp = [&](int i, int j) { return 4 * (sub + G * i) + j; };
 
-  int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  int nx_start = row < a.n_rows ? __ldg(a.rowptr + row) : 0;
-  int nx_end = row < a.n_rows ? __ldg(a.rowptr + row + 1) : 0;
-  for (; row < a.n_rows; row += nwarps) {
-    // the warp's next row's extent loads while this row is worked
-    const int start = nx_start, end = nx_end;
-    if (row + nwarps < a.n_rows) {
-      nx_start = __ldg(a.rowptr + row + nwarps);
-      nx_end = __ldg(a.rowptr + row + nwarps + 1);
-    }
+  // one item: edges [start, end) of row `row`, the whole row, or with
+  // kChunk chunk `item` of it, whose partial (and count) go to scratch
+  auto walk = [&](int row, int start, int end, int item, auto chunk_flag) {
+    constexpr bool kChunk = decltype(chunk_flag)::value;
     const float* vpr = a.vp + static_cast<size_t>(row) * k;
 
     // what depends on the receiver alone, computed at the row's first
@@ -502,17 +532,42 @@ k3_lanes(const Args a) {
         }
       }
     }
-    if (SPARSE && lane == 0) a.got[row] = cnt;
+    if (SPARSE && lane == 0) {
+      if (kChunk)
+        a.part_cnt[item] = cnt;
+      else
+        a.got[row] = cnt;
+    }
 
+    // a row's sum goes to y, a chunk's partial to its row of part
     const bool scalar_out = OP == kSgdSqerr || OP == kLdaLoglik;
-    float* yr = a.y + static_cast<size_t>(row) * (scalar_out ? 1 : nc);
+    const int w = scalar_out ? 1 : nc;
+    if (OP == kLdaInit && kChunk) {   // kept in double until combined
+      double* pr =
+          static_cast<double*>(a.part) + static_cast<size_t>(item) * w;
+#pragma unroll
+      for (int q = 0; q < C; ++q)
+        dacc[q] = cnt == 0 ? 0.0 : xor_sum(dacc[q], G, 32);
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        if (i % NG != grp) continue;   // one group per float4
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (comp(i, j) < nc) pr[comp(i, j)] = dacc[4 * i + j];
+      }
+      return;
+    }
+    float* yr = kChunk ? static_cast<float*>(a.part) +
+                             static_cast<size_t>(item) * w
+                       : a.y + static_cast<size_t>(row) * w;
+    const bool yvec = kChunk ? a.pvec : a.yvec;
     if (cnt == 0) {   // no (sent) edge: 0, the bits the tree would give
       if (scalar_out) {
         if (lane == 0) yr[0] = 0.0f;
       } else {
         for (int c = lane; c < nc; c += 32) yr[c] = 0.0f;
       }
-      continue;
+      return;
     }
     // the groups' partial sums meet in a fixed xor tree
     if (scalar_out) {
@@ -530,7 +585,7 @@ k3_lanes(const Args a) {
       for (int i = 0; i < V; ++i) {
         const int c0 = comp(i, 0);
         if (i % NG != grp || c0 >= nc) continue;   // one group per float4
-        if (a.yvec) {
+        if (yvec) {
           *reinterpret_cast<float4*>(yr + c0) = make_float4(
               acc[4 * i], acc[4 * i + 1], acc[4 * i + 2], acc[4 * i + 3]);
         } else {
@@ -540,6 +595,36 @@ k3_lanes(const Args a) {
         }
       }
     }
+  };
+
+  // the chunks first, then the rows as before: row it - n_chunks, with
+  // the next row's extent in flight; a row of more than C edges is its
+  // chunks' work
+  int it = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  int nx_row = it < a.n_chunks ? __ldg(a.chunk_row + it) : 0;
+  int nx_start = it < a.n_chunks ? __ldg(a.chunk_start + it) : 0;
+  for (; it < a.n_chunks; it += nwarps) {
+    const int row = nx_row, start = nx_start;
+    const int row_end = __ldg(a.rowptr + row + 1);
+    if (it + nwarps < a.n_chunks) {
+      nx_row = __ldg(a.chunk_row + it + nwarps);
+      nx_start = __ldg(a.chunk_start + it + nwarps);
+    }
+    walk(row, start,
+         row_end - start <= kChunkEdges ? row_end : start + kChunkEdges, it,
+         std::true_type());
+  }
+  int row = it - a.n_chunks;
+  nx_start = row < a.n_rows ? __ldg(a.rowptr + row) : 0;
+  int nx_end = row < a.n_rows ? __ldg(a.rowptr + row + 1) : 0;
+  for (; row < a.n_rows; row += nwarps) {
+    const int start = nx_start, end = nx_end;
+    if (row + nwarps < a.n_rows) {
+      nx_start = __ldg(a.rowptr + row + nwarps);
+      nx_end = __ldg(a.rowptr + row + nwarps + 1);
+    }
+    if (end - start <= kChunkEdges)
+      walk(row, start, end, row, std::false_type());
   }
 }
 
@@ -684,12 +769,37 @@ k3_slabs(const Args a) {
   }
 }
 
+// One thread per component of a long row: its chunks' partials summed in
+// chunk order (T double for lda_init, rounded once), and in the sparse
+// mode its count.
+template <typename T, bool SPARSE>
+__global__ void __launch_bounds__(kCombineThreads)
+k3_combine(const Args a, int w) {
+  const long long t =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= static_cast<long long>(a.n_long) * w) return;
+  const int h = static_cast<int>(t / w), q = static_cast<int>(t % w);
+  const int row = __ldg(a.long_rows + h);
+  const int first = __ldg(a.long_first + h);
+  const int end = __ldg(a.long_first + h + 1);
+  const T* p = static_cast<const T*>(a.part) + q;
+  T acc = p[static_cast<size_t>(first) * w];
+#pragma unroll 8
+  for (int c = first + 1; c < end; ++c) acc += p[static_cast<size_t>(c) * w];
+  a.y[static_cast<size_t>(row) * w + q] = static_cast<float>(acc);
+  if (SPARSE && q == 0) {
+    int cnt = 0;
+    for (int c = first; c < end; ++c) cnt += a.part_cnt[c];
+    a.got[row] = cnt;
+  }
+}
+
 // One wave of blocks, as many as the card holds at once for this kernel
-// (none past a warp per row): each warp walks rows row, row + warps, ...
-// with the next row's extent in flight.
+// (none past a warp per item): each warp walks items i, i + warps, ...
+// with the next item's extent in flight.
 // The blocks of one wave are counted once per kernel (one card a process).
 template <void (*Kernel)(Args)>
-void launch_wave(cudaStream_t st, const Args& a) {
+void launch_wave(cudaStream_t st, const Args& a, int items) {
   static long long wave = 0;
   if (wave == 0) {
     int dev = 0, sms = 0, per_sm = 0;
@@ -699,14 +809,24 @@ void launch_wave(cudaStream_t st, const Args& a) {
                                                   kWarpsPerBlock * 32, 0);
     wave = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
   }
-  const long long need = (a.n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const long long need =
+      (static_cast<long long>(items) + kWarpsPerBlock - 1) / kWarpsPerBlock;
   const dim3 grid(static_cast<unsigned>(need < wave ? need : wave));
   Kernel<<<grid, kWarpsPerBlock * 32, 0, st>>>(a);
 }
 
+// The items, then (with long rows) the combine.
 template <int OP, int G, int V, bool SPARSE>
 void launch_lanes(cudaStream_t st, const Args& a) {
-  launch_wave<k3_lanes<OP, G, V, SPARSE>>(st, a);
+  launch_wave<k3_lanes<OP, G, V, SPARSE>>(st, a, a.n_chunks + a.n_rows);
+  if (a.n_long == 0) return;
+  using T = typename std::conditional<OP == kLdaInit, double, float>::type;
+  const int w = OP == kSgdSqerr || OP == kLdaLoglik ? 1 : a.nc;
+  const long long threads = static_cast<long long>(a.n_long) * w;
+  k3_combine<T, SPARSE><<<static_cast<unsigned>(
+                              (threads + kCombineThreads - 1) /
+                              kCombineThreads),
+                          kCombineThreads, 0, st>>>(a, w);
 }
 
 // layout: 1 and 2 for one lane an edge with that many float4s, 3-7 for
@@ -715,7 +835,7 @@ void launch_lanes(cudaStream_t st, const Args& a) {
 template <int OP, bool SPARSE>
 bool launch_op(int layout, cudaStream_t st, const Args& a) {
   switch (layout) {
-    case 0: launch_wave<k3_slabs<OP, SPARSE>>(st, a); return true;
+    case 0: launch_wave<k3_slabs<OP, SPARSE>>(st, a, a.n_rows); return true;
     case 1: launch_lanes<OP, 1, 1, SPARSE>(st, a); return true;
     case 2: launch_lanes<OP, 1, 2, SPARSE>(st, a); return true;
     case 3: launch_lanes<OP, 2, 2, SPARSE>(st, a); return true;
@@ -741,19 +861,30 @@ bool launch_mode(int op, int layout, cudaStream_t st, const Args& a) {
 
 }  // namespace
 
-// One launch of K3.  op: 0 sgd, 1 sgd_sqerr, 2 lda_init, 3 lda,
-// 4 lda_loglik.  k is the row width of x and vp (for lda the topics plus
-// the flag column); x's rows are ldx >= k floats apart, vp's k.  vp may be
-// null for lda_init, extra for the ops other than lda and lda_loglik.  y
-// holds n_rows rows of the op's output width.  sent (one byte per sender)
-// and got (one int32 per row) are both null for the dense mode and both
-// given for the sparse mode.  Returns cudaGetLastError(), or
+// One launch of K3 (two with long rows).  op: 0 sgd, 1 sgd_sqerr,
+// 2 lda_init, 3 lda, 4 lda_loglik.  k is the row width of x and vp (for
+// lda the topics plus the flag column); x's rows are ldx >= k floats
+// apart, vp's k.  vp may be null for lda_init, extra for the ops other
+// than lda and lda_loglik.  y holds n_rows rows of the op's output width.
+// sent (one byte per sender) and got (one int32 per row) are both null for
+// the dense mode and both given for the sparse mode.  Rows up to 256
+// components wide take the chunks of K1's split of rowptr (ops/spmv2u.py:
+// k1_plan; n_chunks and n_long 0 where no row holds more than C edges):
+// chunk_row and chunk_start int32[n_chunks], long_rows int32[n_long]
+// (every row of more than C edges), long_first int32[n_long + 1]; part
+// the chunks' partials, [n_chunks, out width] float32 (float64 for
+// lda_init), and part_cnt int32[n_chunks] in the sparse mode.  The slab
+// kernel reads none of these.  Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for arguments the kernel does not take.
 extern "C" int gm_spmv_vec2(const void* rowptr, const void* col,
                             const void* val, const void* x, const void* vp,
                             const void* extra, const void* sent, void* y,
-                            void* got, int n_rows, int k, int ldx, int op,
-                            float s0, float s1, float s2, void* stream) {
+                            void* got, const void* chunk_row,
+                            const void* chunk_start, const void* long_rows,
+                            const void* long_first, void* part,
+                            void* part_cnt, int n_rows, int n_chunks,
+                            int n_long, int k, int ldx, int op, float s0,
+                            float s1, float s2, void* stream) {
   const int nc = op == kLda ? k - 1 : k;
   if (n_rows <= 0 || nc < 1 || ldx < k || op < kSgd || op > kLdaLoglik ||
       k > 0x7fffffff - kSlab)
@@ -770,6 +901,15 @@ extern "C" int gm_spmv_vec2(const void* rowptr, const void* col,
   int layout = nc <= 4 * kMaxV ? (nc + 3) / 4 : 0;
   for (int g = 2, l = 3; layout == 0 && g <= kMaxG; g <<= 1, ++l)
     if (nc <= 4 * kMaxV * g) layout = l;
+  if (layout != 0 &&
+      (n_long < 0 || n_chunks < n_long || n_long > n_rows ||
+       (n_chunks > 0) != (n_long > 0) ||
+       static_cast<long long>(n_rows) + n_chunks > 0x7fffffff ||
+       (n_chunks > 0 && (chunk_row == nullptr || chunk_start == nullptr ||
+                         long_rows == nullptr || long_first == nullptr ||
+                         part == nullptr ||
+                         (sent != nullptr && part_cnt == nullptr)))))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool xvec = ldx % 4 == 0 &&
                     reinterpret_cast<uintptr_t>(x) % 16 == 0;
@@ -777,6 +917,8 @@ extern "C" int gm_spmv_vec2(const void* rowptr, const void* col,
                      reinterpret_cast<uintptr_t>(vp) % 16 == 0;
   const bool yvec = nc % 4 == 0 &&
                     reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  const bool pvec = nc % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(part) % 16 == 0;
   const Args a{static_cast<const int*>(rowptr),
                static_cast<const int*>(col),
                static_cast<const float*>(val),
@@ -786,7 +928,14 @@ extern "C" int gm_spmv_vec2(const void* rowptr, const void* col,
                static_cast<const uint8_t*>(sent),
                static_cast<float*>(y),
                static_cast<int*>(got),
-               n_rows, k, ldx, nc, xvec, vpvec, yvec, s0, s1, s2};
+               n_rows, k, ldx, nc, xvec, vpvec, yvec, s0, s1, s2,
+               static_cast<const int*>(chunk_row),
+               static_cast<const int*>(chunk_start),
+               static_cast<const int*>(long_rows),
+               static_cast<const int*>(long_first),
+               part,
+               static_cast<int*>(part_cnt),
+               n_chunks, n_long, pvec};
   const bool ok = sent != nullptr
                       ? launch_mode<true>(op, layout, st, a)
                       : launch_mode<false>(op, layout, st, a);

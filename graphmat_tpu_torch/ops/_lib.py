@@ -112,8 +112,7 @@ def load() -> ctypes.CDLL:
     lib.gm_aux_gather.argtypes = [p] * 5 + [ctypes.c_longlong, p]
     lib.gm_aux_gather.restype = i
     f = ctypes.c_float
-    lib.gm_spmv_vec2.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, f,
-                                 f, f, p]
+    lib.gm_spmv_vec2.argtypes = [p] * 15 + [i] * 6 + [f] * 3 + [p]
     lib.gm_spmv_vec2.restype = i
     ll = ctypes.c_longlong
     lib.gm_tc_core_count.argtypes = [p, i, p, i, i, p, p, p, ll, p, p]

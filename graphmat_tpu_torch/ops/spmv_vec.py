@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from .spmv2u import plan_for
 from .spmv_vec2 import (VEC_PROCESS_OPS, check, check_operand, launch,
                         spmv_vec_csr_reference)
 
@@ -32,7 +33,8 @@ __all__ = ["spmv_vec_sparse", "spmv_vec_sparse_reference",
            "spmv_vec_sparse_csr", "spmv_vec_sparse_csr_reference",
            "LAUNCHES"]
 
-# launches of the sparse mode by op; only spmv_vec_sparse_csr adds to them
+# launches of the sparse mode by op; only spmv_vec_sparse_csr adds to them,
+# one per call (two launches with rows of more than CHUNK_EDGES edges)
 LAUNCHES = {op: 0 for op in VEC_PROCESS_OPS}
 
 
@@ -55,12 +57,13 @@ def spmv_vec_sparse_csr_reference(rowptr, col, val, x, op, sent, vp=None,
 
 
 def spmv_vec_sparse_csr(rowptr, col, val, x, op, sent, vp=None, extra=None,
-                        params=None, row=None):
+                        params=None, row=None, plan=None):
     """The sparse mode on a CSR: the operands of
     :func:`~graphmat_tpu_torch.ops.spmv_vec2.spmv_vec_csr` and ``sent``,
     uint8 per sender of ``x``.  Returns ``(y float32[n_rows,
     out_width(op, K)], got int32[n_rows])``.  ``row`` is used only by the
-    plain version."""
+    plain version, ``plan`` only by the kernel (the dense mode's split: a
+    chunk counts its own sent edges, the combine sums the counts)."""
     check(rowptr, col, val, x, op, vp, extra, params)
     _check_sent(sent, x)
     if x.device.type == "cpu":
@@ -68,7 +71,8 @@ def spmv_vec_sparse_csr(rowptr, col, val, x, op, sent, vp=None, extra=None,
                                              vp, extra, params, row)
     if x.device.type != "cuda":
         raise RuntimeError(f"spmv_vec_sparse has no kernel for {x.device}")
-    out = launch(rowptr, col, val, x, op, vp, extra, params, sent=sent)
+    out = launch(rowptr, col, val, x, op, vp, extra, params, sent=sent,
+                 plan=plan)
     if rowptr.numel() > 1:
         LAUNCHES[op] += 1
     return out
@@ -81,9 +85,10 @@ def spmv_vec_sparse(graph_csr, x, op, sent, vp=None, extra=None,
     compacts it): ``x`` and ``sent`` hold one row or flag per sender,
     ``vp`` one row per receiver; edge values are ``graph_csr.val_f32``."""
     check_operand(graph_csr, x)
+    plan = plan_for(graph_csr) if x.device.type == "cuda" else None
     return spmv_vec_sparse_csr(graph_csr.rowptr, graph_csr.col,
                                graph_csr.val_f32, x, op, sent, vp, extra,
-                               params, row=graph_csr.row)
+                               params, row=graph_csr.row, plan=plan)
 
 
 def spmv_vec_sparse_reference(graph_csr, x, op, sent, vp=None, extra=None,

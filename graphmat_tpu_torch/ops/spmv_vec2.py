@@ -28,14 +28,25 @@ slabs of wider rows.
 :func:`spmv_vec` is the graph-level entry; it reads the CSR's own senders
 (``csr.col``), also on a CSR that K1 compacts: K3 needs no compaction
 while its operand sits in the H100's L2.
+
+Up to 256 components, a row of at most ``CHUNK_EDGES`` edges is one
+warp's, and a longer row is cut into the chunks of K1's work split of the
+CSR (:func:`~graphmat_tpu_torch.ops.spmv2u.k1_plan`, kept on the CSR), of
+``CHUNK_EDGES`` edges and one warp each, whose partials a second launch
+sums in chunk order.  So no warp walks a hub row alone, and a sum is the
+same from launch to launch.  Each call with such chunks counts them and
+their edges (``k3.chunks``, ``k3.chunk_edges``) in the recorder of
+:mod:`~graphmat_tpu_torch.utils.timing`.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils import timing
 from ..utils.reference_rng import RAND_MAX, rand_r_torch
 from . import _lib
+from .spmv2u import k1_plan, plan_for
 
 __all__ = ["VEC_PROCESS_OPS", "MAX_WIDTH", "out_width", "spmv_vec",
            "spmv_vec_reference", "spmv_vec_csr", "spmv_vec_csr_reference",
@@ -47,6 +58,9 @@ MAX_WIDTH = 2 ** 31 - 1 - 128
 # the most edges its int32 edge indices address past a row's last span
 MAX_EDGES = 2 ** 31 - 1 - 256
 REF_CHUNK = 1 << 22  # edges per step of the plain version (bounds memory)
+# the widest row the kernel holds in registers and walks by the split; a
+# wider one takes the slab kernel, one warp a row (csrc/spmv_vec2.cu)
+REG_WIDTH = 256
 
 
 def _sgd(x, v, vp, extra, p):
@@ -106,7 +120,8 @@ _OP_CODE = {"sgd": 0, "sgd_sqerr": 1, "lda_init": 2, "lda": 3,
 _NEEDS_VP = {"sgd", "sgd_sqerr", "lda", "lda_loglik"}
 _PARAMS = {"lda": ("alpha", "eta", "vocab_size"), "lda_loglik": ("eta",)}
 
-# launches of the K3 kernel by op; only spmv_vec_csr adds to them
+# launches of the K3 kernel by op; only spmv_vec_csr adds to them, one per
+# call (two launches with rows of more than CHUNK_EDGES edges)
 LAUNCHES = {op: 0 for op in VEC_PROCESS_OPS}
 
 
@@ -208,46 +223,72 @@ def _scalars(op, params):
     return (0.0, 0.0, 0.0)
 
 
-def launch(rowptr, col, val, x, op, vp, extra, params, sent=None):
-    """One launch of ``csrc/spmv_vec2.cu`` on checked CUDA tensors: the
-    dense mode, or with ``sent`` the sparse mode, which returns
-    ``(y, got)``.  The callers count the launch.  Where x's width is not a
-    multiple of 4, x is first copied into rows of the next multiple of 4
-    (zeros after), so that the kernel gathers a row with 16-byte loads."""
+def launch(rowptr, col, val, x, op, vp, extra, params, sent=None,
+           plan=None):
+    """One launch of ``csrc/spmv_vec2.cu`` on checked CUDA tensors (two
+    where rows are cut into chunks): the dense mode, or with ``sent`` the
+    sparse mode, which returns ``(y, got)``.  ``plan`` is
+    :func:`~graphmat_tpu_torch.ops.spmv2u.k1_plan` of ``rowptr``, built
+    here (with host reads) when not given.  The callers count the launch.
+    Where x's width is not a multiple of 4, x is first copied into rows of
+    the next multiple of 4 (zeros after), so that the kernel gathers a row
+    with 16-byte loads."""
     n_rows = rowptr.numel() - 1
     k = x.shape[1]
-    y = torch.empty((n_rows, out_width(op, k)),
-                    dtype=torch.float32, device=x.device)
+    w = out_width(op, k)
+    y = torch.empty((n_rows, w), dtype=torch.float32, device=x.device)
     got = (torch.empty(n_rows, dtype=torch.int32, device=x.device)
            if sent is not None else None)
-    if n_rows > 0:
-        if k % 4 and op != "lda_init":
-            x = torch.nn.functional.pad(x, (0, -k % 4))
-        _lib.launch(
-            "gm_spmv_vec2", x.device,
-            rowptr.data_ptr(), col.data_ptr(), val.data_ptr(), x.data_ptr(),
-            vp.data_ptr() if op in _NEEDS_VP else None,
-            extra.data_ptr() if extra is not None else None,
-            sent.data_ptr() if sent is not None else None, y.data_ptr(),
-            got.data_ptr() if got is not None else None, n_rows, k,
-            x.shape[1], _OP_CODE[op], *_scalars(op, params))
+    if n_rows == 0:
+        return y if sent is None else (y, got)
+    if k % 4 and op != "lda_init":
+        x = torch.nn.functional.pad(x, (0, -k % 4))
+    n_chunks = 0
+    if (k - 1 if op == "lda" else k) <= REG_WIDTH:
+        plan = k1_plan(rowptr) if plan is None else plan
+        n_chunks = plan.chunk_row.numel()
+    if n_chunks:
+        part = torch.empty((n_chunks, w), device=x.device, dtype=(
+            torch.float64 if op == "lda_init" else torch.float32))
+        part_cnt = (torch.empty(n_chunks, dtype=torch.int32,
+                                device=x.device)
+                    if sent is not None else None)
+        split_args = (plan.chunk_row.data_ptr(), plan.chunk_start.data_ptr(),
+                      plan.long_rows.data_ptr(), plan.long_first.data_ptr(),
+                      part.data_ptr(),
+                      part_cnt.data_ptr() if part_cnt is not None else None,
+                      n_rows, n_chunks, plan.long_rows.numel())
+    else:
+        split_args = (None,) * 6 + (n_rows, 0, 0)
+    _lib.launch(
+        "gm_spmv_vec2", x.device,
+        rowptr.data_ptr(), col.data_ptr(), val.data_ptr(), x.data_ptr(),
+        vp.data_ptr() if op in _NEEDS_VP else None,
+        extra.data_ptr() if extra is not None else None,
+        sent.data_ptr() if sent is not None else None, y.data_ptr(),
+        got.data_ptr() if got is not None else None, *split_args, k,
+        x.shape[1], _OP_CODE[op], *_scalars(op, params))
+    if n_chunks:
+        timing.count("k3.chunks", n_chunks)
+        timing.count("k3.chunk_edges", plan.chunk_edges)
     return y if sent is None else (y, got)
 
 
 def spmv_vec_csr(rowptr, col, val, x, op, vp=None, extra=None, params=None,
-                 row=None):
+                 row=None, plan=None):
     """K3 on a CSR: ``rowptr`` int32[n_rows+1], ``col`` int32[nnz] (each
     < len(x)), ``val`` float32[nnz], ``x`` float32[n_send, K], ``vp``
     float32[n_rows, K] when ⊗ reads it, ``extra`` float32 when it reads
     one.  Returns float32[n_rows, out_width(op, K)].  ``row`` is used only
-    by the plain version."""
+    by the plain version; ``plan`` (:func:`k1_plan` of ``rowptr``) only by
+    the kernel, which builds it (with host reads) when not given."""
     check(rowptr, col, val, x, op, vp, extra, params)
     if x.device.type == "cpu":
         return spmv_vec_csr_reference(rowptr, col, val, x, op, vp, extra,
                                       params, row)
     if x.device.type != "cuda":
         raise RuntimeError(f"spmv_vec has no kernel for {x.device}")
-    y = launch(rowptr, col, val, x, op, vp, extra, params)
+    y = launch(rowptr, col, val, x, op, vp, extra, params, plan=plan)
     if rowptr.numel() > 1:
         LAUNCHES[op] += 1
     return y
@@ -265,8 +306,10 @@ def spmv_vec(graph_csr, x, op, vp=None, extra=None, params=None):
     one row per sender, ``vp`` one per receiver; edge values are
     ``graph_csr.val_f32``."""
     check_operand(graph_csr, x)
+    plan = plan_for(graph_csr) if x.device.type == "cuda" else None
     return spmv_vec_csr(graph_csr.rowptr, graph_csr.col, graph_csr.val_f32,
-                        x, op, vp, extra, params, row=graph_csr.row)
+                        x, op, vp, extra, params, row=graph_csr.row,
+                        plan=plan)
 
 
 def spmv_vec_reference(graph_csr, x, op, vp=None, extra=None, params=None):

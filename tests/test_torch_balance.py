@@ -1,13 +1,16 @@
-"""The work splits of the two scalar SpMV kernels (K1's row groups and hub
-chunks, ``ops/spmv2u.py: k1_plan``; the push kernel's chunks of
-sender tiles, ``ops/spmv2.py: push_plan``), and the plain versions
-against the JAX package's XLA path on a star graph, whose hub sender and
-hub receiver each hold more than one chunk of edges.
+"""The work splits of the SpMV kernels (K1's row groups and hub chunks,
+``ops/spmv2u.py: k1_plan``, which K3 walks too, a row or a chunk a warp;
+the push kernel's chunks of sender tiles, ``ops/spmv2.py: push_plan``),
+and the plain versions against the JAX package's XLA path on a star
+graph, whose hub sender and hub receiver each hold more than one chunk of
+edges.
 
 Each plan must cover every edge exactly once, in order, give no warp more
 than ``CHUNK_EDGES`` edges and put every row or sender in one group: on a
-star graph, on RMAT-10 with and without the degree permutation, and on a
-graph with empty rows and rows at each group's length limit.
+star graph, on RMAT-10 with and without the degree permutation, on a
+graph with empty rows and rows at each group's length limit (C and C + 1
+among them), and on a small draw of the benchmark's MovieLens law, whose
+most rated films span up to three chunks.
 
 Tolerances: BFS depths and parents exact; PageRank within 1e-6 of max(1,
 |pr|) (float32 sums in other orders).
@@ -25,6 +28,7 @@ import graphmat_tpu_torch as gt
 from graphmat_tpu_torch.apps import bfs, pagerank
 from graphmat_tpu_torch.ops import spmv2, spmv2u
 from graphmat_tpu_torch.utils.generators import rmat_edgelist
+from perfbench.gen import ratings
 
 C = spmv2u.CHUNK_EDGES
 STAR_N = 2600   # the hub's in- and out-degree, 2599, span three chunks
@@ -66,6 +70,18 @@ def limit_edges(seed=1):
                                    n=n)
 
 
+def rating_edges(users=6000, items=600, count=400_000, seed=7):
+    """A rating graph drawn by the benchmark's generator with the laws of
+    ``movielens25m-k20`` at a small size (1-based, user -> film): 130
+    films above C ratings, 19 above 2C, the most rated 2342."""
+    cfg = {"users": users, "items": items, "ratings": count,
+           "assumed": {"user_floor": 20, "user_top": items,
+                       "film_q": 263.84, "film_exponent": 2.7052}}
+    r = ratings.make(cfg, seed, "cpu")
+    return gt.edgelist_from_arrays(r["src"].numpy() + 1, r["dst"].numpy() + 1,
+                                   r["val"].numpy(), m=r["n"], n=r["n"])
+
+
 GRAPHS = {
     "star": lambda: gt.Graph(star_edges(), device="cpu", compact=False),
     "rmat10": lambda: gt.Graph(rmat_edgelist(10, 16, seed=2, device="cpu"),
@@ -74,6 +90,7 @@ GRAPHS = {
         rmat_edgelist(10, 16, seed=2, device="cpu"), device="cpu",
         compact=False, permute="degree"),
     "limits": lambda: gt.Graph(limit_edges(), device="cpu", compact=False),
+    "ratings": lambda: gt.Graph(rating_edges(), device="cpu", compact=False),
 }
 
 
@@ -126,6 +143,36 @@ def check_k1_plan(rowptr, plan):
     assert torch.equal(torch.sort(covered)[0], torch.arange(nnz))
 
 
+def check_k3_split(rowptr, plan):
+    """K3's walk (``csrc/spmv_vec2.cu: k3_lanes``): item i is chunk i of
+    K1's plan below n_chunks, then row i - n_chunks, skipped when it holds
+    more than C edges; a chunk stops at C edges or its row's end.  Every
+    row of at most C edges is an item (an empty row too, so that its 0 is
+    written), a longer row is the plan's ``long_rows`` (its chunks' row
+    and the combine's), no item holds more than C edges, and a row's
+    items hold its edges once, in order."""
+    rp = rowptr.long()
+    n_rows, nnz = rp.numel() - 1, int(rp[-1])
+    lens = rp.diff()
+    chunk_row = plan.chunk_row.long()
+    start = plan.chunk_start.long()
+    end = torch.minimum(start + C, rp[chunk_row + 1])
+    short = torch.nonzero(lens <= C).flatten()
+    long_rows = torch.nonzero(lens > C).flatten()
+    assert torch.equal(torch.sort(plan.long_rows.long())[0], long_rows)
+    assert torch.equal(torch.unique(chunk_row), long_rows)
+    row = torch.cat([chunk_row, short])
+    lo = torch.cat([start, rp[short]])
+    hi = torch.cat([end, rp[short + 1]])
+    assert bool(((hi - lo) <= C).all())
+    assert torch.equal(torch.unique(row), torch.arange(n_rows))
+    order = torch.argsort(row * (nnz + 1) + lo)
+    assert torch.equal(edge_ranges(lo[order], hi[order]), torch.arange(nnz))
+    # the combine sums a row's chunks in chunk order, which is edge order
+    assert bool((start.diff()[chunk_row.diff() == 0] == C).all())
+    assert plan.chunk_edges == int(lens[long_rows].sum())
+
+
 def push_chunks(rowptr, plan):
     """(tile, first edge, end) of every chunk, in the kernel's warp order:
     chunk 0 of each tile, then the plan's further chunks."""
@@ -163,12 +210,18 @@ def test_plans_cover_every_edge_once(name):
     g = GRAPHS[name]()
     for recv in ("dst", "src"):
         rowptr = g.csr(recv).rowptr
-        check_k1_plan(rowptr, spmv2u.k1_plan(rowptr))
+        k1 = spmv2u.k1_plan(rowptr)
+        check_k1_plan(rowptr, k1)
+        check_k3_split(rowptr, k1)
         check_push_plan(rowptr, spmv2.push_plan(rowptr))
-    if name in ("star", "limits"):   # hub rows and hub senders exist
+    if name in ("star", "limits", "ratings"):   # hub rows exist
         plan = spmv2u.k1_plan(g.csr("dst").rowptr)
         assert plan.long_rows.numel() > 0
         assert spmv2.push_plan(g.csr("src").rowptr).extra_tile.numel() > 0
+    if name == "ratings":   # films of up to three chunks; users of none
+        lens = g.csr("dst").rowptr.diff()
+        assert int((lens > C).sum()) == 130 and int(lens.max()) == 2342
+        assert spmv2u.k1_plan(g.csr("src").rowptr).long_rows.numel() == 0
 
 
 def test_plans_are_kept_on_the_csr():

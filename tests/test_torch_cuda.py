@@ -343,12 +343,15 @@ def test_spmv_vec2_kernel_matches_plain(cuda, op, k):
 
 @functools.lru_cache(maxsize=None)
 def _row_length_csr():
-    """Receiver rows of 0, 1, 31, 32, 33 and 2^16 edges (distinct random
-    senders, integer counts), with empty rows between them."""
+    """Receiver rows of 0, 1, 31, 32, 33, C and C + 1 edges, 2^16 edges
+    and 81,491 (MovieLens-25M's most rated film), 64 and 80 chunks of C
+    (distinct random senders, integer counts), with empty rows between
+    them."""
     rng = np.random.default_rng(8)
+    c = spmv2u.CHUNK_EDGES
     n, src, dst, recv = 1 << 17, [], [], 1
-    for length, count in ((1, 300), (31, 40), (32, 40), (33, 40),
-                          (1 << 16, 1)):
+    for length, count in ((1, 300), (31, 40), (32, 40), (33, 40), (c, 3),
+                          (c + 1, 3), (1 << 16, 1), (81_491, 1)):
         for _ in range(count):
             src.append(1 + rng.permutation(n)[:length])
             dst.append(np.full(length, recv))
@@ -362,9 +365,39 @@ def _row_length_csr():
 @pytest.mark.parametrize("k", [4, 20, 161])
 @pytest.mark.parametrize("op", K3_OPS)
 def test_spmv_vec2_kernel_on_row_lengths(cuda, op, k):
-    """Row ends inside and at a warp's batch of 32 edges, and one row of
-    2^16 edges on one warp; empty rows exactly 0."""
+    """Row ends inside and at a warp's batch of 32 edges, a row of C edges
+    on one warp, rows of C + 1, 2^16 and 81,491 edges cut into chunks;
+    empty rows exactly 0."""
     _check_k3(_row_length_csr(), op, k, cuda, long_rows=True)
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+def test_spmv_vec2_counts_its_chunks(cuda, sparse, monkeypatch):
+    """A call on rows cut into chunks counts the plan's chunks and their
+    edges, once; a CSR without a row over C counts none."""
+    from graphmat_tpu_torch.utils import timing
+    monkeypatch.setenv("GRAPHMAT_TPU_TIMING", "1")
+    timing.reset()
+    try:
+        for csr in (_row_length_csr(),
+                    _ratings_graph(cuda, build_in_edges=False).csr("dst")):
+            plan = spmv2u.plan_for(csr)
+            x, vp, _ = _k3_inputs("sgd", 20, csr.n_send, cuda)
+            before = dict(timing.snapshot()["counters"])
+            if sparse:
+                sent = torch.ones(csr.n_send, dtype=torch.uint8,
+                                  device=cuda)
+                spmv_vec.spmv_vec_sparse(csr, x, "sgd", sent, vp=vp)
+            else:
+                spmv_vec2.spmv_vec(csr, x, "sgd", vp=vp)
+            after = timing.snapshot()["counters"]
+            for name, want in (("k3.chunks", plan.chunk_row.numel()),
+                               ("k3.chunk_edges", plan.chunk_edges)):
+                assert after.get(name, 0) - before.get(name, 0) == want
+        assert plan.chunk_row.numel() == 0
+    finally:
+        monkeypatch.delenv("GRAPHMAT_TPU_TIMING")
+        timing.reset()
 
 
 def test_spmv_vec2_kernel_without_edges(cuda):
