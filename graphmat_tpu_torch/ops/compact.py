@@ -51,14 +51,13 @@ def compact_auto(n_send: int, device) -> bool:
     (:func:`compact_enabled`), as the port's parity tests expect.
 
     On an H100 (80GB HBM3, 700 W) compaction pays at neither scale
-    measured, below or above the card's 50 MB L2 (``chip_smoke.py``
-    phases 6 and 18; PERF.md §6): the dense PageRank step on a
-    degree-permuted RMAT-22 (a 16.8 MB operand) is never faster
-    compacted (0.03-0.10 ms slower in four runs of six, within the
-    noise in the others), and on RMAT-24 (67 MB, with 17.2M extension
-    positions) 1.4-3% slower in every run.  K1 alone gains at most 1.5%
-    there, less than the gather costs.  ``compact=True`` still compacts, with the same results
-    bitwise."""
+    measured, below or above the card's 50 MB L2 (PERF.md §6): the
+    dense PageRank step on a degree-permuted RMAT-22 (a 16.8 MB operand)
+    is never faster compacted (0.03-0.10 ms slower in four runs of six,
+    within the noise in the others), and on RMAT-24 (67 MB, with 17.2M
+    extension positions) 1.4-3% slower in every run.  K1 alone gains at
+    most 1.5% there, less than the gather costs.  ``compact=True`` still
+    compacts, with the same results bitwise."""
     if torch.device(device).type == "cuda":
         return False
     return compact_enabled(n_send)

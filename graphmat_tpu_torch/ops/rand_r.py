@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import torch
 
-from ..utils import timing
 from ..utils.reference_rng import RAND_MAX, rand_r_torch
 from . import _lib
 
@@ -52,7 +51,6 @@ def rand_r_uniform(first_seed: int, n: int, k: int, dtype,
         raise ValueError(f"rand_r_uniform draws float32 or float64, not "
                          f"{dtype}")
     device = torch.device(device)
-    timing.count("rand_r.values", n * k)
     if device.type == "cpu":
         return rand_r_uniform_reference(first_seed, n, k, dtype, device)
     if device.type != "cuda":

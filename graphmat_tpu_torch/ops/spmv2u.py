@@ -92,8 +92,7 @@ class K1Plan(NamedTuple):
     owns chunks ``long_first[h]`` to ``long_first[h + 1]``, chunk ``c``
     being edges ``[chunk_start[c], chunk_start[c] + CHUNK_EDGES)`` of row
     ``chunk_row[c]`` (cut at the row's end).  Every row is in ``rows`` or
-    ``long_rows`` once; every tensor int32.  ``chunk_edges``, on the host,
-    is the edges of the hub rows (K3 counts it, ``ops/spmv_vec2.py``)."""
+    ``long_rows`` once; every tensor int32."""
 
     rows: torch.Tensor
     counts: Tuple[int, int, int, int]
@@ -101,7 +100,6 @@ class K1Plan(NamedTuple):
     long_first: torch.Tensor
     chunk_row: torch.Tensor
     chunk_start: torch.Tensor
-    chunk_edges: int
 
 
 def k1_plan(rowptr: torch.Tensor) -> K1Plan:
@@ -112,10 +110,8 @@ def k1_plan(rowptr: torch.Tensor) -> K1Plan:
     lens = rowptr.diff().long()
     cls = torch.bucketize(lens, torch.tensor(MAX_LEN, device=dev))
     order = torch.argsort(cls, stable=True).to(i32)
-    # one host read for the class counts and the hub rows' edges
-    *counts, chunk_edges = torch.cat((
-        torch.bincount(cls, minlength=len(WIDTHS) + 1),
-        torch.where(cls == len(WIDTHS), lens, 0).sum()[None])).tolist()
+    # one host read for the class counts
+    counts = torch.bincount(cls, minlength=len(WIDTHS) + 1).tolist()
     n_short = sum(counts[:len(WIDTHS)])
     long_rows = order[n_short:]
     n_chunk = (lens[long_rows.long()] + CHUNK_EDGES - 1) // CHUNK_EDGES
@@ -129,8 +125,7 @@ def k1_plan(rowptr: torch.Tensor) -> K1Plan:
     chunk_start = (rowptr[chunk_row.long()].long() + CHUNK_EDGES * (
         torch.arange(n_chunks, device=dev) - long_first[h]))
     return K1Plan(order[:n_short], tuple(counts[:len(WIDTHS)]), long_rows,
-                  long_first.to(i32), chunk_row, chunk_start.to(i32),
-                  chunk_edges)
+                  long_first.to(i32), chunk_row, chunk_start.to(i32))
 
 
 def plan_for(graph_csr) -> K1Plan:

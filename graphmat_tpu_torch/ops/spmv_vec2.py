@@ -34,16 +34,13 @@ warp's, and a longer row is cut into the chunks of K1's work split of the
 CSR (:func:`~graphmat_tpu_torch.ops.spmv2u.k1_plan`, kept on the CSR), of
 ``CHUNK_EDGES`` edges and one warp each, whose partials a second launch
 sums in chunk order.  So no warp walks a hub row alone, and a sum is the
-same from launch to launch.  Each call with such chunks counts them and
-their edges (``k3.chunks``, ``k3.chunk_edges``) in the recorder of
-:mod:`~graphmat_tpu_torch.utils.timing`.
+same from launch to launch.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..utils import timing
 from ..utils.reference_rng import RAND_MAX, rand_r_torch
 from . import _lib
 from .spmv2u import k1_plan, plan_for
@@ -268,9 +265,6 @@ def launch(rowptr, col, val, x, op, vp, extra, params, sent=None,
         sent.data_ptr() if sent is not None else None, y.data_ptr(),
         got.data_ptr() if got is not None else None, *split_args, k,
         x.shape[1], _OP_CODE[op], *_scalars(op, params))
-    if n_chunks:
-        timing.count("k3.chunks", n_chunks)
-        timing.count("k3.chunk_edges", plan.chunk_edges)
     return y if sent is None else (y, got)
 
 

@@ -52,6 +52,7 @@ from graphmat_tpu_torch.io.transforms import \
 from graphmat_tpu_torch.ops import _lib  # noqa: E402
 from graphmat_tpu_torch.ops import triangles as tri  # noqa: E402
 from graphmat_tpu_torch.utils.generators import rmat_edgelist  # noqa: E402
+from perfbench.roofline import bound_s  # noqa: E402
 
 OUT = os.path.join(ROOT, "build", "tc_ab")
 SRC = os.path.join(ROOT, "graphmat_tpu_torch", "csrc", "triangles.cu")
@@ -220,8 +221,8 @@ def one_scale(scale, libs, parent, rounds, pairs):
     t1, pv1 = rounds_ms(libs, args1, t1_call, nacc, rounds)
     planes = 3 * iu.numel() * 4 + nacc * 4
     nonzero = int((bm != 0).sum())
-    b_old = cs.hbm_ms(bm.numel() * 4 + planes)
-    b_new = cs.hbm_ms(sm.numel() * 4 + nonzero * 4 + planes)
+    b_old = bound_s(bm.numel() * 4 + planes) * 1e3
+    b_new = bound_s(sm.numel() * 4 + nonzero * 4 + planes) * 1e3
     res["t1"] = {"bound_ms_parent_reads": b_old, "bound_ms": b_new,
                  "bitmap_nonzero_words": nonzero,
                  "by_version": summarize(t1, b_new)}
@@ -231,7 +232,7 @@ def one_scale(scale, libs, parent, rounds, pairs):
     args2 = {name: (p2[0] if name == "parent" else c2[0]) for name in libs}
     mats, gk = c2[0][0], c2[0][2]
     t2, pv2 = rounds_ms(libs, args2, t2_call, nacc, rounds)
-    b2 = cs.hbm_ms(mats.numel() * 4 + 4 * gk.numel() * 4 + nacc * 4)
+    b2 = bound_s(mats.numel() * 4 + 4 * gk.numel() * 4 + nacc * 4) * 1e3
     res["t2"] = {"probes": gk.numel(), "bound_ms": b2,
                  "by_version": summarize(t2, b2)}
     for name, pv in pv2.items():

@@ -98,11 +98,13 @@ K2_SPECIALS = [0x7FC00001, 0xFFC12345, 0x7F800001, 0x80000000, 0x7F800000,
                0xFF800000, 0x00000001, 0x3F800000]
 
 
-@pytest.mark.parametrize("n", [1, 3, 4, 5, (1 << 20) + 3, 300_001])
+@pytest.mark.parametrize("n", [1, 3, 4, 5, (1 << 20) + 3, 300_001,
+                               "compacted"])
 @pytest.mark.parametrize("fused", [False, True])
 def test_aux_gather_kernel_matches_plain(cuda, fused, n):
     """K2, value-only and fused with the sent flags, bitwise its plain
-    version at counts on and off whole quads, in one launch."""
+    version at counts on and off whole quads and on a compacted CSR's own
+    position map, in one launch."""
     gen = torch.Generator(device=cuda)
     gen.manual_seed(1)
     x = torch.randn(100_000, generator=gen, device=cuda)
@@ -110,10 +112,14 @@ def test_aux_gather_kernel_matches_plain(cuda, fused, n):
         torch.int32).view(torch.float32).to(cuda)
     sent = (torch.rand(x.numel(), generator=gen, device=cuda) < 0.5).to(
         torch.uint8)
-    src = torch.randint(0, x.numel(), (n,), generator=gen, device=cuda,
-                        dtype=torch.int32)
-    src[:min(n, 8)] = torch.arange(min(n, 8), device=cuda,
-                                   dtype=torch.int32)
+    if n == "compacted":
+        src = _compacted_pair()[0].src_of_pos
+        n = src.numel()
+    else:
+        src = torch.randint(0, x.numel(), (n,), generator=gen, device=cuda,
+                            dtype=torch.int32)
+        src[:min(n, 8)] = torch.arange(min(n, 8), device=cuda,
+                                       dtype=torch.int32)
     out = torch.empty(n, device=cuda)
     flags = torch.empty(n, dtype=torch.uint8, device=cuda)
     before = compact.LAUNCHES["aux_gather"]
@@ -282,7 +288,7 @@ def _row_rtol(op, k, deg, long_rows):
     more than 40 terms, float32 summation itself: a row's sum of deg terms
     in the kernel's order and in index_add_'s (which changes from run to
     run on CUDA) errs by up to (deg - 1) units each, and lda_init's K-term
-    normaliser by up to K units each, as ``chip_smoke.py`` bounds them."""
+    normaliser by up to K units each."""
     u = 2.0 ** -24
     rtol = 1e-6 if op == "lda_init" else 1e-5
     sums = 2 * (deg.float()[:, None] - 1).clamp(min=0) * u
@@ -369,35 +375,6 @@ def test_spmv_vec2_kernel_on_row_lengths(cuda, op, k):
     on one warp, rows of C + 1, 2^16 and 81,491 edges cut into chunks;
     empty rows exactly 0."""
     _check_k3(_row_length_csr(), op, k, cuda, long_rows=True)
-
-
-@pytest.mark.parametrize("sparse", [False, True])
-def test_spmv_vec2_counts_its_chunks(cuda, sparse, monkeypatch):
-    """A call on rows cut into chunks counts the plan's chunks and their
-    edges, once; a CSR without a row over C counts none."""
-    from graphmat_tpu_torch.utils import timing
-    monkeypatch.setenv("GRAPHMAT_TPU_TIMING", "1")
-    timing.reset()
-    try:
-        for csr in (_row_length_csr(),
-                    _ratings_graph(cuda, build_in_edges=False).csr("dst")):
-            plan = spmv2u.plan_for(csr)
-            x, vp, _ = _k3_inputs("sgd", 20, csr.n_send, cuda)
-            before = dict(timing.snapshot()["counters"])
-            if sparse:
-                sent = torch.ones(csr.n_send, dtype=torch.uint8,
-                                  device=cuda)
-                spmv_vec.spmv_vec_sparse(csr, x, "sgd", sent, vp=vp)
-            else:
-                spmv_vec2.spmv_vec(csr, x, "sgd", vp=vp)
-            after = timing.snapshot()["counters"]
-            for name, want in (("k3.chunks", plan.chunk_row.numel()),
-                               ("k3.chunk_edges", plan.chunk_edges)):
-                assert after.get(name, 0) - before.get(name, 0) == want
-        assert plan.chunk_row.numel() == 0
-    finally:
-        monkeypatch.delenv("GRAPHMAT_TPU_TIMING")
-        timing.reset()
 
 
 def test_spmv_vec2_kernel_without_edges(cuda):
@@ -488,7 +465,7 @@ def test_init_sgd_graph_on_cuda_matches_cpu(cuda, permute):
         tsgd.init_sgd_graph(g_c, 20)
     c = timing.snapshot()["counters"]
     assert rand_r.LAUNCHES["uniform"] == before + 1
-    assert c["copy.htod.bytes"] == 4 and c["rand_r.values"] == g_c.n * 20
+    assert c["copy.htod.bytes"] == 4
     tsgd.init_sgd_graph(g_h, 20)
     np.testing.assert_array_equal(g_c.vp_numpy()["lv"].view(np.uint32),
                                   g_h.vp_numpy()["lv"].view(np.uint32))
@@ -651,7 +628,10 @@ def _weighted_graph(device, scale=12):
 
 @pytest.mark.parametrize("share", [0.0, 0.5, 1.0])
 @pytest.mark.parametrize("kind,op", [("min", "x_add_val"), ("sum", "x"),
-                                     ("min", "key_add_val")])
+                                     ("min", "key_add_val"), ("min", "x"),
+                                     ("min", "x_mul_val"),
+                                     ("sum", "x_mul_val"),
+                                     ("sum", "x_add_val")])
 def test_spmv_recv_final_and_keys_match_plain(cuda, kind, op, share):
     g = _rmat_graph(cuda, build_in_edges=False)
     c = g.csr("dst")
@@ -689,12 +669,15 @@ def test_spmv_recv_final_and_keys_match_plain(cuda, kind, op, share):
 
 
 @pytest.mark.parametrize("frontier", [None, 1e-4, 1e-2, 0.5])
-@pytest.mark.parametrize("op", ["x", "x_mul_val", "x_add_val"])
-@pytest.mark.parametrize("kind", ["sum", "min", "max"])
+@pytest.mark.parametrize("kind,op", [
+    (k, o) for k in ("sum", "min", "max")
+    for o in ("x", "x_mul_val", "x_add_val")]
+    + [("min", "key_add_val"), ("max", "key_add_val")])
 def test_push_kernel_matches_plain(cuda, kind, op, frontier):
     """The push against its plain version: min and max launch the push
     kernel; a dense sum K1 alone; a sparse sum the mark pass, then K1 with
-    the unmarked rows final."""
+    the unmarked rows final.  Packed keys (one in ten the +inf fill) take
+    integer weights 1..7."""
     g = _weighted_graph(cuda)
     sc = g.sender_csr("dst")
     gen = torch.Generator(device=cuda)
@@ -704,6 +687,14 @@ def test_push_kernel_matches_plain(cuda, kind, op, frontier):
     sent = None if frontier is None else (
         torch.rand(g.n_pad, generator=gen, device=cuda) < frontier).to(
             torch.uint8)
+    if op == "key_add_val":
+        keys = spmv2u.KEY_BIAS + torch.randint(
+            0, 1 << 20, (g.n_pad,), generator=gen, device=cuda)
+        x = keys.to(torch.int32).view(torch.float32).clone()
+        x[torch.rand(g.n_pad, generator=gen, device=cuda) < 0.1] = \
+            float("inf")
+        val = torch.randint(1, 8, (sc.nnz,), generator=gen,
+                            device=cuda).float()
     got = kind == "sum" and sent is not None
     mode = "dense" if sent is None else "sparse"
     if kind != "sum":
@@ -715,13 +706,13 @@ def test_push_kernel_matches_plain(cuda, kind, op, frontier):
     tables = {"push": spmv2.LAUNCHES, "k1": spmv2u.LAUNCHES}
     before = {k: dict(t) for k, t in tables.items()}
     out = spmv2.spmv_push(sc, x, kind, op, val=val, sent=sent,
-                          want_got=got)
+                          want_got=got, bits=20)
     torch.cuda.synchronize()
     launched = {(k, m): n - before[k][m] for k, t in tables.items()
                 for m, n in t.items() if n != before[k][m]}
     assert launched == want
     ref = spmv2.spmv_push_reference(sc, x, kind, op, val=val, sent=sent,
-                                    want_got=got)
+                                    want_got=got, bits=20)
     if got:
         (out, cnt), (ref, cnt_ref) = out, ref
         assert torch.equal(cnt, cnt_ref)
@@ -854,27 +845,40 @@ def _check_against_plain(out, ref, kind, got, terms, recv_of_edge, sent_e):
     assert bool(((out - ref).abs() <= bound).all())
 
 
-@pytest.mark.parametrize("mode", ["dense", "sparse", "sparse_final"])
+@pytest.mark.parametrize("mode", ["dense", "sparse", "sparse_final",
+                                  "sparse_final_live", "sparse_half"])
 @pytest.mark.parametrize("op", ["x", "x_mul_val", "x_add_val",
                                 "key_add_val"])
 @pytest.mark.parametrize("kind", ["sum", "min", "max"])
 def test_hub_graph_kernels_match_plain(cuda, kind, op, mode):
     """K1 and the push on the hub graph, where hub rows are chunked and
     combined, hub senders spread over many warps and every lane-group
-    width runs: min, max and counts bitwise, sums within 1e-5 of Σ|terms|."""
+    width runs: min, max and counts bitwise, sums within 1e-5 of Σ|terms|.
+    The sparse modes send 1% of senders and the hub sender, a sum with
+    its got count; K1 with half the rows final, the hub receiver's row
+    final or live; ``sparse_half`` sends half the senders, a sum without
+    the count."""
     g = _hub_graph(op == "key_add_val")
     rc, sc = g.csr("dst"), g.sender_csr("dst")
     x, val, sent, rf = _hub_inputs(g, kind, op, rc.nnz, 7)
+    if mode == "sparse_half":
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(13)
+        sent = (torch.rand(g.n_pad, generator=gen, device="cuda")
+                < 0.5).to(torch.uint8)
+    if mode == "sparse_final_live":
+        rf[HUB + 2] = 0
     sent = None if mode == "dense" else sent
-    got = kind == "sum" and sent is not None
+    got = kind == "sum" and sent is not None and mode != "sparse_half"
+    final = mode.startswith("sparse_final")
     kw = dict(val=val, sent=sent, want_got=got,
-              recv_final=rf if mode == "sparse_final" else None, bits=20)
+              recv_final=rf if final else None, bits=20)
     _check_against_plain(
         spmv2u.spmv(rc, x, kind, op, **kw),
         spmv2u.spmv_reference(rc, x, kind, op, **kw), kind, got,
         spmv2u.PROCESS_OPS[op](x[rc.col.long()], val, 20), rc.row.long(),
         None if sent is None else sent[rc.col.long()].float())
-    if mode == "sparse_final":
+    if final:
         return
     x, val, _, _ = _hub_inputs(g, kind, op, sc.nnz, 8)
     if kind == "sum":   # a push sum reads the graph's own values
@@ -1025,7 +1029,7 @@ def test_push_mark_kernel_matches_plain(cuda):
 
 
 @pytest.mark.parametrize("scale,weight_range", [(10, 0), (14, 255),
-                                                (16, 5)])
+                                                (16, 5), (20, 255)])
 def test_rmat_kernels_match_plain(cuda, scale, weight_range):
     """The RMAT keys and weights kernels bitwise their plain versions, one
     launch each; the edge list drawn on the card that drawn on the CPU."""
@@ -1075,6 +1079,8 @@ def _tc_pairs(cuda, case):
         return e.src.long() - 1, e.dst.long() - 1, e.n, 4096, True
     if case == "tail_hub":
         return (*_tail_hub_pairs(cuda, 2100, 6), 64, True)
+    if case == "tail_hub_8192":   # tail lists of 5008 ids
+        return (*_tail_hub_pairs(cuda, 5000, 8), 64, True)
     rng = np.random.default_rng(6)
     u = torch.as_tensor(rng.integers(0, 90, 700), device=cuda)
     v = torch.as_tensor(rng.integers(0, 90, 700), device=cuda)
@@ -1083,7 +1089,7 @@ def _tc_pairs(cuda, case):
 
 @pytest.mark.parametrize("case", ["rmat14_h0", "rmat14_h64", "rmat14_h128",
                                   "rmat14_h4096", "rmat12_all_core",
-                                  "tail_hub", "n90_w3"])
+                                  "tail_hub", "tail_hub_8192", "n90_w3"])
 def test_triangle_kernels_match_plain(cuda, case):
     """T1 and T2 on the device prep's arguments against their plain
     versions, exactly; the count against the host route's."""
@@ -1100,6 +1106,10 @@ def test_triangle_kernels_match_plain(cuda, case):
             == (t1[0].shape[1] > 0))   # h = 0 leaves no core to count
     if case == "rmat12_all_core":   # n = h: every edge is core
         assert t2 is None
+    if case == "rmat14_h0":
+        assert t1[0].shape[1] == 0
+    if case == "n90_w3":   # the bitmap's 3 words a row padded to 4
+        assert t1[0].shape[1] == 4
     if t2 is not None:
         got = triangles.tail_count(*t2, zeros())
         torch.cuda.synchronize()
@@ -1112,6 +1122,11 @@ def test_triangle_kernels_match_plain(cuda, case):
     assert total == total_h and torch.equal(pv, pv_h)
     if case == "tail_hub":
         assert total == 15 * 2100 + 20
+    if case == "tail_hub_8192":   # the widest class pair reaches 8192
+        ladder, gk = t2[1], t2[2].long()
+        assert total == 28 * 5000 + 56
+        assert ladder[int(torch.maximum(gk // len(ladder),
+                                        gk % len(ladder)).max())] == 8192
 
 
 def _summary(bm):
@@ -1194,9 +1209,18 @@ def test_tail_count_kernel_on_edge_lists_matches_plain(cuda, ladder, order):
 
 
 def test_triangle_kernels_on_the_empty_graph(cuda):
+    """No edge, no core edge, no probe: a count of 0, and no launch."""
+    before = dict(triangles.LAUNCHES)
     e = torch.zeros(0, dtype=torch.int64, device=cuda)
     pv, total = triangles.count_triangles_bucketed(e, e, 100)
     assert total == 0 and pv.shape == (100,) and not bool(pv.any())
+    z = torch.zeros(0, dtype=torch.int32, device=cuda)
+    triangles.core_count(torch.zeros((1, 4), dtype=torch.int32, device=cuda),
+                         torch.zeros((1, 1), dtype=torch.int32, device=cuda),
+                         z, z, z, pv)
+    triangles.tail_count(z, triangles._LADDER, z, z, z, z, pv)
+    torch.cuda.synchronize()
+    assert triangles.LAUNCHES == before and not bool(pv.any())
 
 
 @pytest.mark.parametrize("permute", [False, "degree"])

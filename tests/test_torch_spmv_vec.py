@@ -130,13 +130,17 @@ def xla_sums(u, sent):
     return want, bound
 
 
-@pytest.mark.parametrize("mode", ["dense", "sparse"])
-@pytest.mark.parametrize("k", [161, 200])
+@pytest.mark.parametrize("k, mode", [
+    pytest.param(k, mode, id=f"{k}-{mode}")
+    for mode in ("dense", "sparse") for k in (161, 200)]
+    + [pytest.param(k, "dense", id=f"{k}-dense") for k in (8, 20, 40)])
 @pytest.mark.parametrize("op", OPS)
 def test_wide_plain_matches_jax_xla(op, k, mode):
-    """Rows wider than 160 columns (the parent kernel's bound): the plain
-    dense and sparse versions against the JAX programs' ⊗ through the XLA
-    segment reduce, each row within 1e-5 of its Σ|terms|."""
+    """The plain dense version (K3) at K = 8, 20 and 40, and the dense
+    and sparse versions at rows wider than 160 columns (the parent
+    kernel's bound), against the JAX programs' ⊗ through the XLA segment
+    reduce, every sender sent in the dense mode: each row within 1e-5 of
+    its Σ|terms|."""
     sent = sent_mask(1.0 if mode == "dense" else 0.3)
     want, bound = xla_sums(jax_terms(op, k), sent)
     if mode == "dense":
@@ -185,8 +189,7 @@ def test_sparse_at_full_share_equals_dense_plain():
     """With every sender sent the sparse mode's plain version gives the
     dense one's result, to 1e-6 relative: the plain versions on the CPU
     were seen to differ in the last bits between two calls on the same
-    input.  (The kernels give the same bits, ``tests/test_torch_cuda.py``
-    and ``chip_smoke.py`` phase 16.)"""
+    input.  (The kernels give the same bits, ``tests/test_torch_cuda.py``.)"""
     full = _pad(np.ones(N, np.uint8))
     for op in OPS:
         x, vp, extra = inputs(op)

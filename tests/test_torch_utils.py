@@ -223,11 +223,6 @@ def _corrupt_k1_hub(c):
     c._plans["k1"] = p._replace(chunk_start=p.chunk_start + 1)
 
 
-def _corrupt_k1_edges(c):
-    p = spmv2u.plan_for(c)
-    c._plans["k1"] = p._replace(chunk_edges=p.chunk_edges - 1)
-
-
 # invariant -> (graph, corruption of its receiver=dst CSR, or of the
 # validate_csr call)
 CORRUPT = {
@@ -249,8 +244,6 @@ CORRUPT = {
     "k1 plan: every row in one group": ("plain", _corrupt_k1_group),
     "k1 plan: a row in its length class": ("plain", _corrupt_k1_class),
     "k1 plan: a hub row's chunks cover it": ("hub", _corrupt_k1_hub),
-    "k1 plan: chunk_edges counts the hub rows' edges": (
-        "hub", _corrupt_k1_edges),
     "push plan: covers every edge once": ("hub", _corrupt_push),
     "a direction holds n_pad rows over n_pad senders": (
         "plain", lambda c: setattr(c, "n_send", c.n_send + 1)),
