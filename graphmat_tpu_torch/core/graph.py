@@ -30,7 +30,7 @@ import torch
 from ..io.edgelist import EdgeList, edgelist_from_arrays
 from ..ops.compact import compact_auto, divert_stragglers, pad_positions
 from ..utils.debug import debug_enabled, validate_csr, validate_plan
-from ..utils.timing import NULL_SPAN, copied, recording, span
+from ..utils.timing import NULL_SPAN, copied, count, recording, span
 
 __all__ = ["Graph", "CSR", "round_up"]
 
@@ -126,6 +126,39 @@ def _upload(values):
         return NULL_SPAN
     copied("htod", *host)
     return span("graph.upload")
+
+
+def _host_allocs() -> int:
+    """Blocks the caching host allocator has page-locked so far."""
+    return torch.cuda.host_memory_stats()["num_host_alloc"]
+
+
+def _readback(device: torch.device, tensors) -> list:
+    """Host copies of ``tensors`` (on ``device``) as numpy arrays, counted
+    as ``copy.dtoh``.  On the card each lands in a page-locked block of
+    PyTorch's caching host allocator, one DMA a tensor and one
+    synchronise for all: a block comes back to the pool when the caller
+    drops the array that holds it, so a later readback of the same shapes
+    finds it resident and page-locked, and never writes into an array a
+    caller still holds.  ``copy.pinned.n`` counts the blocks handed out,
+    ``copy.pinned.new`` those the pool had to page-lock anew."""
+    if device.type != "cuda":
+        out = [t.cpu().numpy() for t in tensors]
+    else:
+        rec = recording()
+        before = _host_allocs() if rec else 0
+        dst = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+               for t in tensors]
+        if rec:
+            count("copy.pinned.n", len(dst))
+            count("copy.pinned.new", _host_allocs() - before)
+        for d, t in zip(dst, tensors):
+            d.copy_(t, non_blocking=True)
+        for dev in {t.device for t in tensors}:
+            torch.cuda.current_stream(dev).synchronize()
+        out = [d.numpy() for d in dst]
+    copied("dtoh", *out)
+    return out
 
 
 class _VpRef:
@@ -406,25 +439,20 @@ class Graph:
         """Host copies of the vertex properties in ORIGINAL order."""
         with span("graph.readback"):
             if self.perm is None:
-                out = {k: v[: self.n].cpu().numpy()
-                       for k, v in self.vp.items()}
+                vals = [v[: self.n] for v in self.vp.values()]
             else:
-                out = {k: v[self.perm].cpu().numpy()
-                       for k, v in self.vp.items()}
-            copied("dtoh", *out.values())
-        return out
+                vals = [v[self.perm] for v in self.vp.values()]
+            return dict(zip(self.vp, _readback(self.device, vals)))
 
     # ------------------------------------------------------------- active
 
     def active_numpy(self) -> np.ndarray:
         """The frontier as a host bool[n] in ORIGINAL order."""
         with span("graph.readback"):
-            a = self.active.cpu().numpy()
             if self.perm is None:
-                copied("dtoh", a)
+                a, = _readback(self.device, [self.active])
                 return a[: self.n]
-            perm = self.perm.cpu().numpy()
-            copied("dtoh", a, perm)
+            a, perm = _readback(self.device, [self.active, self.perm])
             return a[perm]
 
     def set_all_active(self) -> None:

@@ -53,9 +53,9 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from ..core.graph import CSR, _build_csr, _VpRef, round_up
+from ..core.graph import CSR, _build_csr, _readback, _VpRef, round_up
 from ..io.edgelist import EdgeList
-from ..utils.timing import copied, span
+from ..utils.timing import span
 from .mesh import Mesh
 
 __all__ = ["DistGraph", "BUILD_CHUNK"]
@@ -407,18 +407,17 @@ class DistGraph:
         """Host copies of the vertex properties in ORIGINAL order, on every
         process (the ``graph.readback`` span, as ``Graph``'s)."""
         with span("graph.readback"):
-            full = {k: self._full([v[k] for v in self.vp]).cpu().numpy()
-                    for k in self.vp[0]}
-            copied("dtoh", *full.values())
-            return {k: self._to_original(a) for k, a in full.items()}
+            fields = list(self.vp[0])
+            full = _readback(self.device, [
+                self._full([v[k] for v in self.vp]) for k in fields])
+            return {k: self._to_original(a) for k, a in zip(fields, full)}
 
     # ------------------------------------------------------------- active
 
     def active_numpy(self) -> np.ndarray:
         """The frontier as a host bool[n] in ORIGINAL order."""
         with span("graph.readback"):
-            a = self._full(self.active).cpu().numpy()
-            copied("dtoh", a)
+            a, = _readback(self.device, [self._full(self.active)])
             return self._to_original(a)
 
     def set_all_active(self) -> None:

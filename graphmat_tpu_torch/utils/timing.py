@@ -32,7 +32,10 @@ apps, ``Graph`` and ``Engine`` call it at their boundaries:
   kernels and copies.  Spans nest by a stack: one thread records;
 * counters are a :class:`~graphmat_tpu_torch.utils.logging.Counters`;
   :func:`copied` counts ``copy.<dtoh|htod>.bytes`` and ``.n`` where the
-  program copies between the host and the device;
+  program copies between the host and the device; ``Graph``'s readbacks
+  on the card count ``copy.pinned.n``, the page-locked destinations
+  they take, and ``copy.pinned.new``, those the caching host allocator
+  had to page-lock anew;
 * past :data:`SPAN_CAP` spans it keeps only each name's count and total
   time, and counts the spans it dropped;
 * off, a span costs one flag check and returns a shared null context:

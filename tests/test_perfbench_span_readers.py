@@ -1,5 +1,5 @@
 """The benchmark's readers of the program's spans and counters
-(``perfbench/spans.py`` and the five per-layer readers that share it) on
+(``perfbench/spans.py`` and the six per-layer readers that share it) on
 a synthetic trace and recorder snapshot whose values are worked out by
 hand, and on empty ones, where each reads nothing."""
 
@@ -34,7 +34,8 @@ def _job_spans(t, first_id):
 def _snapshot():
     return {"spans": _job_spans(10.0, 1) + _job_spans(12.0, 8),
             "counters": {"copy.dtoh.bytes": 3e6, "copy.htod.bytes": 1e6,
-                         "copy.dtoh.n": 6.0, "engine.steps": 2.0},
+                         "copy.dtoh.n": 6.0, "engine.steps": 2.0,
+                         "copy.pinned.n": 8.0, "copy.pinned.new": 2.0},
             "totals": {}, "dropped": 0}
 
 
@@ -58,6 +59,8 @@ READERS = {
     "host_copy_mb_per_job.bfs": 2.0,
     # 6 reads over 4 iterations
     "host_reads_per_iteration.pagerank": 1.5,
+    # 2 new blocks of 8 destinations
+    "pinned_hit_share.bfs": 75.0,
 }
 
 
@@ -77,6 +80,18 @@ def test_reader_reads_nothing_without_spans(name, snap, monkeypatch):
     m = harness.module("metrics", name)
     assert m.read(_trace(), {}) is None
     assert m.read(Trace(), {}) is None
+
+
+def test_pinned_hit_share_reads_nothing_without_pinned_readbacks(
+        monkeypatch):
+    """Spans but no pinned destination (a CPU graph, or a program that
+    reads back into pageable memory): no share."""
+    snap = _snapshot()
+    for k in ("copy.pinned.n", "copy.pinned.new"):
+        del snap["counters"][k]
+    monkeypatch.setattr(pspans, "snapshot", lambda: snap)
+    m = harness.module("metrics", "pinned_hit_share.bfs")
+    assert m.read(_trace(), {}) is None
 
 
 def test_alignment_puts_each_span_back_on_the_trace_clock():

@@ -23,7 +23,9 @@ over repeated launches.  T1 and T2
 (TriangleCounting's core and tail counts) equal their plain versions
 exactly, and TriangleCounting and GetNeighbors on the card their CPU
 runs.  The RMAT stream's kernels equal their plain versions bit for bit,
-and the rand_r draw (SGD's initial factors) the host's numpy draw.
+and the rand_r draw (SGD's initial factors) the host's numpy draw.  The
+readbacks of ``Graph`` and ``DistGraph`` return the state bitwise, in
+writable arrays of page-locked blocks that a later readback reuses.
 """
 
 import functools
@@ -1389,6 +1391,79 @@ def test_graft_entry_on_cuda(cuda):
     assert all(a > b for a, b in zip(after, counts)), (counts, after)
 
 
+# ------------------------------------------- readbacks into pinned memory
+
+def _fields(n, seed):
+    """Vertex fields of each dtype a program keeps, in original order."""
+    gen = torch.Generator().manual_seed(seed)
+    return {"i": torch.randint(-2 ** 31, 2 ** 31 - 1, (n,),
+                               dtype=torch.int32, generator=gen),
+            "f": torch.randn(n, generator=gen),
+            "d": torch.randn(n, dtype=torch.float64, generator=gen),
+            "b": torch.rand(n, generator=gen) < 0.5,
+            "k": torch.randn(n, 20, generator=gen)}
+
+
+def _bits(a):
+    return np.ascontiguousarray(a).tobytes()
+
+
+def _check_readbacks(g, monkeypatch):
+    """``vp_numpy`` and ``active_numpy`` of a card graph: each field
+    bitwise what was set, in original order, with its dtype and shape, in
+    a writable array; an array held across a second readback, after the
+    state changed on the card, keeps its values; and once the earlier
+    results are dropped, a third readback of the same shapes takes every
+    destination from the pinned pool and page-locks no new block."""
+    from graphmat_tpu_torch.utils import timing
+    want, mask = _fields(g.n, 9), _fields(g.n, 11)["b"]
+    g.init_vertexproperty(**want)
+    g.set_active_mask(mask)
+    first, act = g.vp_numpy(), g.active_numpy()
+    assert list(first) == list(want)
+    for k, v in want.items():
+        assert (first[k].dtype, first[k].shape) == (v.numpy().dtype,
+                                                   tuple(v.shape))
+        assert _bits(first[k]) == _bits(v.numpy()), k
+        assert first[k].flags.writeable
+    assert _bits(act) == _bits(mask.numpy()) and act.flags.writeable
+    kept = {k: a.copy() for k, a in first.items()}
+    other = _fields(g.n, 10)
+    g.init_vertexproperty(**other)
+    g.set_active_mask(~mask)
+    second, act2 = g.vp_numpy(), g.active_numpy()
+    for k, v in other.items():
+        assert _bits(second[k]) == _bits(v.numpy()), k
+        assert _bits(first[k]) == _bits(kept[k]), k
+        assert not np.shares_memory(first[k], second[k])
+        first[k][...] = 0
+    assert _bits(act) == _bits(mask.numpy())
+    assert _bits(act2) == _bits((~mask).numpy())
+    assert _bits(g.vp_numpy()["f"]) == _bits(other["f"].numpy())
+    del first, second, act, act2
+    monkeypatch.setenv("GRAPHMAT_TPU_TIMING", "1")
+    timing.reset()
+    try:
+        third, act3 = g.vp_numpy(), g.active_numpy()
+        c = timing.snapshot()["counters"]
+    finally:
+        monkeypatch.delenv("GRAPHMAT_TPU_TIMING")
+        timing.reset()
+    for k, v in other.items():
+        assert _bits(third[k]) == _bits(v.numpy()), k
+    assert _bits(act3) == _bits((~mask).numpy())
+    assert c["copy.pinned.n"] == c["copy.dtoh.n"] > 0
+    assert c["copy.pinned.new"] == 0
+
+
+@pytest.mark.parametrize("permute", [False, "degree"])
+def test_readbacks_land_in_reused_pinned_blocks(cuda, permute, monkeypatch):
+    g = gt.Graph(rmat_edgelist(12, 8, seed=5, device="cpu"), device=cuda,
+                 permute=permute)
+    assert (g.perm is None) == (permute is False)
+    _check_readbacks(g, monkeypatch)
+
+
 # ------------------------------------------------- four cards, one process
 
 @pytest.fixture
@@ -1451,3 +1526,17 @@ def test_pagerank_over_four_cards_matches_one_card(four_cards):
     pr_1, _ = tpr.run_pagerank(one, iterations=k)
     pr_4, _ = tpr.run_pagerank(mesh, iterations=k)
     assert (abs(pr_4 - pr_1) / np.maximum(1.0, abs(pr_1))).max() <= 1e-5
+
+
+@pytest.mark.parametrize("permute", [False, "degree"])
+def test_mesh_readbacks_land_in_reused_pinned_blocks(four_cards, permute,
+                                                     monkeypatch):
+    """``DistGraph``'s readbacks on a 2x2 LocalMesh over cuda:0-3, as
+    ``test_readbacks_land_in_reused_pinned_blocks`` checks ``Graph``'s."""
+    from graphmat_tpu_torch.parallel.dist_graph import DistGraph
+    from graphmat_tpu_torch.parallel.mesh import LocalMesh
+    e = rmat_edgelist(12, 8, seed=5, device="cpu")
+    g = DistGraph(e, LocalMesh(four_cards, (2, 2)), seg_align=8,
+                  permute=permute)
+    assert (g.perm is None) == (permute is False)
+    _check_readbacks(g, monkeypatch)

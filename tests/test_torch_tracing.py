@@ -291,3 +291,37 @@ def test_upload_and_readback_of_the_frontier(graph):
     assert c["copy.htod.bytes"] == mask.nbytes and c["copy.htod.n"] == 1
     assert c["copy.dtoh.bytes"] == graph.n_pad + sum(
         a.nbytes for a in one.values())
+
+
+@pytest.mark.parametrize("permute", [False, "degree"])
+def test_readback_on_a_cpu_graph_counts_no_pinned_copy(permute):
+    """On a CPU graph ``vp_numpy`` and ``active_numpy`` take no page-locked
+    block: the fields come back as the tensors' own numpy views, in
+    original order, counted as ``copy.dtoh`` and never as
+    ``copy.pinned``."""
+    g = Graph(rmat_edgelist(8, 8, seed=4, device="cpu"), device="cpu",
+              permute=permute)
+    n = g.n
+    g.init_vertexproperty(
+        i=torch.arange(n, dtype=torch.int32),
+        f=torch.linspace(0, 1, n, dtype=torch.float64),
+        m=torch.arange(n) % 3 == 0,
+        w=torch.arange(2 * n, dtype=torch.float32).reshape(n, 2))
+    g.set_active_mask(np.arange(n) % 5 == 0)
+    idx = slice(None, n) if g.perm is None else g.perm
+    with profile(activities=[ProfilerActivity.CPU]):
+        vp = g.vp_numpy()
+        act = g.active_numpy()
+    assert list(vp) == ["i", "f", "m", "w"]
+    for k, v in g.vp.items():
+        want = v[idx].numpy()
+        assert vp[k].dtype == want.dtype and vp[k].shape == want.shape
+        np.testing.assert_array_equal(vp[k], want)
+    np.testing.assert_array_equal(vp["i"], np.arange(n))
+    np.testing.assert_array_equal(act, np.arange(n) % 5 == 0)
+    c = timing.snapshot()["counters"]
+    assert not [k for k in c if k.startswith("copy.pinned")]
+    perm_bytes = 0 if g.perm is None else g.perm.numel() * 8
+    assert c["copy.dtoh.n"] == 4 + 1 + (g.perm is not None)
+    assert c["copy.dtoh.bytes"] == (sum(a.nbytes for a in vp.values())
+                                    + g.n_pad + perm_bytes)
